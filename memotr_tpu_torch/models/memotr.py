@@ -1,0 +1,203 @@
+"""MeMOTR top-level model (counterpart of ``memotr_tpu/models/memotr.py``).
+
+One frame in, detection + track predictions out: ResNet-50 -> three 1x1
+projections of layer2/3/4 plus a 3x3 stride-2 level off layer4, each with
+GroupNorm(32) in float32 and a sine position embedding of its downsampled
+mask -> DAB detection queries concatenated with the fixed track slots ->
+deformable transformer with per-layer class/box heads.
+
+Parameter names follow the reference MeMOTR ``state_dict`` (the key set
+``memotr_tpu/checkpoint/torch_convert.py`` parses), so a reference ``.pth``
+loads with ``load_state_dict`` and ``convert_torch_state_dict`` turns this
+model's state dict into the JAX parameter trees.  The query updater is a
+submodule (``query_updater.*``), as in the reference.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import cfg_get, num_classes_for_dataset
+from ..utils.misc import inverse_sigmoid
+from .decoder import bbox_head
+from .layers import Linear
+from .position_embedding import sine_position_embedding
+from .query_updater import QueryUpdater
+from .resnet import Conv2d, ResNet50
+from .transformer import DeformableTransformer
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _downsample_mask(mask: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Nearest downsample of a (B, H, W) bool mask with source index
+    ``floor(i * H_in / H_out)``, as torch's ``F.interpolate(mode="nearest")``
+    computes it on the reference's float mask."""
+    _, hh, ww = mask.shape
+    ri = torch.arange(h, device=mask.device) * hh // h
+    ci = torch.arange(w, device=mask.device) * ww // w
+    return mask[:, ri][:, :, ci]
+
+
+class GroupNorm32(nn.GroupNorm):
+    """GroupNorm computed in float32 whatever the input dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight,
+                            self.bias, self.eps)
+
+
+class MeMOTR(nn.Module):
+    def __init__(self, num_classes: int = 1, n_det_queries: int = 300,
+                 n_feature_levels: int = 4, hidden_dim: int = 256,
+                 ffn_dim: int = 1024, n_heads: int = 8, n_enc_points: int = 4,
+                 n_dec_points: int = 4, n_enc_layers: int = 6,
+                 n_dec_layers: int = 6, merge_det_track_layer: int = 0,
+                 use_dab: bool = True,
+                 encoder_type: str = "deformable",
+                 update_threshold: float = 0.5,
+                 long_memory_lambda: float = 0.01,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        c = hidden_dim
+        self.num_classes = num_classes
+        self.n_det_queries = n_det_queries
+        self.hidden_dim = c
+        self.use_dab = use_dab
+        self.n_dec_layers = n_dec_layers
+        self.dtype = dtype
+        # reference nesting: backbone.backbone.backbone.<torchvision names>
+        self.backbone = nn.ModuleDict(
+            {"backbone": nn.ModuleDict({"backbone": ResNet50(dtype)})})
+        projs = []
+        in_ch = ResNet50.num_channels
+        for i in range(n_feature_levels):
+            if i < len(in_ch):
+                conv = Conv2d(in_ch[i], c, 1, compute_dtype=dtype)
+            else:
+                conv = Conv2d(in_ch[-1] if i == len(in_ch) else c, c, 3,
+                              stride=2, padding=1, compute_dtype=dtype)
+            projs.append(nn.Sequential(conv, GroupNorm32(min(32, c), c)))
+        self.feature_projs = nn.ModuleList(projs)
+
+        qdim = c if use_dab else 2 * c
+        self.det_query_embed = nn.Parameter(torch.randn(n_det_queries, qdim))
+        if use_dab:
+            self.det_anchor = nn.Parameter(torch.randn(n_det_queries, 4))
+
+        self.transformer = DeformableTransformer(
+            d_model=c, d_ffn=ffn_dim, n_levels=n_feature_levels,
+            n_heads=n_heads, n_enc_points=n_enc_points,
+            n_dec_points=n_dec_points, n_enc_layers=n_enc_layers,
+            n_dec_layers=n_dec_layers, n_det_queries=n_det_queries,
+            merge_det_track_layer=merge_det_track_layer, use_dab=use_dab,
+            encoder_type=encoder_type, dtype=dtype)
+        if not use_dab:
+            # D-DETR infers 2-d reference points from the positional half
+            self.transformer.reference_points = nn.Linear(c, 2)
+
+        prior = -torch.log(torch.tensor((1 - 0.01) / 0.01)).item()
+        self.class_embed = nn.ModuleList()
+        for _ in range(n_dec_layers):
+            head = Linear(c, num_classes, compute_dtype=torch.float32)
+            nn.init.constant_(head.bias, prior)
+            self.class_embed.append(head)
+        self.bbox_embed = nn.ModuleList(
+            bbox_head(c, -2.0 if i == 0 else 0.0, dtype)
+            for i in range(n_dec_layers))
+        # the reference shares the box heads with the decoder's refinement,
+        # so its state dict carries them twice
+        self.transformer.decoder.bbox_embed = self.bbox_embed
+
+        self.query_updater = QueryUpdater(
+            c, ffn_dim, use_dab=use_dab, update_threshold=update_threshold,
+            long_memory_lambda=long_memory_lambda, dtype=dtype)
+
+    def forward(self, images: torch.Tensor, img_mask: torch.Tensor,
+                track_query_embed: torch.Tensor, track_ref_pts: torch.Tensor,
+                track_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """images (B, H, W, 3) normalized; img_mask (B, H, W) True = pad;
+        track_query_embed (B, S, C or 2C); track_ref_pts (B, S, 4) logit
+        space; track_mask (B, S) True = live slot.
+
+        Returns (L = decoder layers, N = Nd + S): pred_logits (B, N, K),
+        pred_boxes (B, N, 4), last_ref_pts / init_ref_pts (B, N, 4) logit
+        space, query_mask (B, N), det_query_embed, outputs (B, N, C),
+        all_logits (L, B, N, K), all_boxes (L, B, N, 4), queries
+        (L, B, N, C)."""
+        b = images.shape[0]
+        # NHWC -> NCHW view with channels_last strides (no copy)
+        x = images.permute(0, 3, 1, 2).to(self.dtype)
+        feats = self.backbone["backbone"]["backbone"](x)
+
+        srcs, masks, poss = [], [], []
+        for i, proj in enumerate(self.feature_projs):
+            inp = feats[i] if i < len(feats) else \
+                (feats[-1] if i == len(feats) else srcs[-1])
+            src = proj(inp)
+            m = _downsample_mask(img_mask, src.shape[2], src.shape[3])
+            srcs.append(src.to(self.dtype))
+            masks.append(m)
+            poss.append(sine_position_embedding(m, self.hidden_dim // 2))
+
+        det_query = self.det_query_embed
+        if self.use_dab:
+            det_refs = self.det_anchor
+        else:
+            rp = self.transformer.reference_points(det_query[:, :self.hidden_dim])
+            det_refs = torch.cat([rp, torch.zeros_like(rp)], dim=-1)
+        ref_pts = torch.cat([det_refs[None].expand(b, -1, -1),
+                             track_ref_pts.float()], dim=1)
+        query_embed = torch.cat(
+            [det_query[None].expand(b, -1, -1).to(self.dtype),
+             track_query_embed.to(self.dtype)], dim=1)
+        query_mask = torch.cat(
+            [torch.zeros((b, self.n_det_queries), dtype=torch.bool,
+                         device=images.device), ~track_mask], dim=1)
+
+        dec = self.transformer(srcs, masks, poss, query_embed, ref_pts,
+                               query_mask, self.class_embed)
+        # refs[-2] is the reference entering the last layer
+        last_ref = dec["refs"][-2] if self.n_dec_layers > 1 \
+            else dec["init_reference"]
+        return {
+            "pred_logits": dec["logits"][-1],
+            "pred_boxes": dec["boxes"][-1],
+            "last_ref_pts": inverse_sigmoid(last_ref),
+            "init_ref_pts": inverse_sigmoid(dec["init_reference"]),
+            "query_mask": query_mask,
+            "det_query_embed": det_query,
+            "outputs": dec["outputs"][-1].float(),
+            "all_logits": dec["logits"],
+            "all_boxes": dec["boxes"],
+            "queries": dec["queries"],
+        }
+
+
+def build_model(config: dict) -> MeMOTR:
+    """Build from a flat UPPER_CASE config; reads the same keys as
+    ``memotr_tpu.models.memotr.build_model`` (plus the updater's)."""
+    if cfg_get(config, "EXTRA_TRACK_ATTN"):
+        raise NotImplementedError("EXTRA_TRACK_ATTN is not ported to PyTorch "
+                                  "(ROADMAP.md, queue 1)")
+    return MeMOTR(
+        num_classes=num_classes_for_dataset(config["DATASET"]),
+        n_det_queries=config["NUM_DET_QUERIES"],
+        n_feature_levels=config["NUM_FEATURE_LEVELS"],
+        hidden_dim=config["HIDDEN_DIM"],
+        ffn_dim=config["FFN_DIM"],
+        n_heads=config["NUM_HEADS"],
+        n_enc_points=config["NUM_ENC_POINTS"],
+        n_dec_points=config["NUM_DEC_POINTS"],
+        n_enc_layers=config["NUM_ENC_LAYERS"],
+        n_dec_layers=config["NUM_DEC_LAYERS"],
+        merge_det_track_layer=cfg_get(config, "MERGE_DET_TRACK_LAYER"),
+        use_dab=cfg_get(config, "USE_DAB"),
+        encoder_type=cfg_get(config, "ENCODER_TYPE"),
+        update_threshold=cfg_get(config, "UPDATE_THRESH", 0.5),
+        long_memory_lambda=cfg_get(config, "LONG_MEMORY_LAMBDA", 0.01),
+        dtype=DTYPES[cfg_get(config, "DTYPE")],
+    )
