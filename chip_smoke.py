@@ -6,18 +6,33 @@ Phases, each printed on its own line; any failure ends the run with a
 nonzero exit and no result line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: the MSDA forward kernel from memotr_tpu_torch/csrc/ (nvcc);
-3. kernel vs plain PyTorch on the card at the main path's MSDA shapes
-   (encoder B=1, decoder B=1 and B=2, one awkward shape), float32 and
+2. build: both kernels from memotr_tpu_torch/csrc/ (one nvcc each, in
+   parallel), with ptxas's registers and spills per kernel;
+3. K1 (MSDA forward) vs plain PyTorch on the card at the MSDA shapes of the
+   paths (encoder B=1, decoder B=1 and B=2, one awkward shape), float32 and
    bfloat16, with out-of-bounds taps; median times over 20 runs;
-4. slice: the full-width deformable MeMOTR of configs/train_dancetrack.yaml
-   (seeded random weights) streams 8 synthetic 800x1536 uint8 frames
-   through the port's Submitter in bfloat16 and writes MOT txt; checks
-   finite outputs, live tracks, the kernel's launch count and the txt;
-5. one float32 frame of the same model through the kernel and through the
+4. K2 (fused window attention) vs plain PyTorch at the main path's shapes
+   (window level 0, grid levels 0 and 3, with the 800x1536 canvas's padding
+   and its fully padded windows) and an awkward one, float32 and bfloat16;
+   median times over 20 runs of the kernel, the plain version and the
+   library composition (matmuls + scaled_dot_product_attention);
+5. deformable slice: configs/train_dancetrack.yaml (seeded random weights)
+   streams synthetic 800x1536 uint8 frames through the port's Submitter in
+   bfloat16; finite outputs, live tracks, launch counts, MOT txt;
+6. one float32 frame of the deformable model through K1 and through the
    plain MSDA (TF32 off), compared;
-then a JSON line of kernel results and, last, the device line
-``{"ok": true, "device": {...}}``.
+7. windowed slice (this slice's main path): the fields of
+   configs/train_dancetrack_windowed.yaml, 8 frames in bfloat16 through the
+   Submitter with the eval cache on; 12 K2 and 6 K1 launches per frame;
+8. one float32 frame of the windowed model through both kernels and
+   through both plain versions (TF32 off), compared;
+9. profile: 3 more windowed frames timed, then again under torch.profiler:
+   host wall time, device busy time and idle share, device time by kernel
+   family;
+10. hybrid: configs/train_dancetrack.yaml with ENCODER_TYPE hybrid, 2
+    frames; 6 K2 and 12 K1 launches per frame;
+then a JSON line of kernel results, the card's name and power limit and,
+last, the device line ``{"ok": true, "device": {...}}``.
 
 There is no CPU path: without a CUDA device the script exits nonzero.
 """
@@ -25,6 +40,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -32,16 +48,35 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ENC_SHAPES = ((100, 192), (50, 96), (25, 48), (13, 24))   # 800x1536 / 8..64
-KERNEL_SRC = "memotr_tpu_torch/csrc/msda_fwd.cu"
-TPU_KERNEL = "memotr_tpu/ops/msda_pallas.py:65"
+K1_SRC = "memotr_tpu_torch/csrc/msda_fwd.cu"
+K1_TPU = "memotr_tpu/ops/msda_pallas.py:65"
+K2_SRC = "memotr_tpu_torch/csrc/window_attn_fwd.cu"
+K2_TPU = "memotr_tpu/ops/window_attn.py:112"
 F32_TOL = dict(atol=1e-5, rtol=1e-4)
 BF16_ATOL = 2e-2
-# one float32 frame, kernel vs plain MSDA: both are float32 sums over the
-# same taps in another order (~1e-6 per call), carried through 12 MSDA
-# layers and the heads
+# K2 in float32: the projections (256-term sums), logits and value mix in
+# float32 in another order, the logits unrounded: ~1e-6 relative per stage
+K2_F32_TOL = dict(atol=1e-4, rtol=1e-4)
+# K2 in bfloat16 against the plain version in float32 on the same inputs:
+# the kernel rounds x + pos, the weights, Q/K/V, P.V and the output to bf16
+# (5 roundings of <= 2^-9 relative on values of magnitude < ~4)
+K2_BF16_ATOL = 5e-2
+# one float32 frame, kernels vs plain versions: float32 sums in another
+# order (~1e-6 per call), carried through the encoder, 6 decoder layers and
+# the heads.  The windowed model with these seeded random weights amplifies
+# a 1e-6 relative change of K2's outputs some 100-1000x in pred_logits
+# (phase 8 measures it in every run), so its frame tolerance is wider; its
+# K2 calls are each held at K2_F32_TOL on their own inputs.
 FRAME_ATOL = {"pred_logits": 1e-3, "pred_boxes": 1e-3}
+WINDOWED_FRAME_ATOL = {"pred_logits": 3e-2, "pred_boxes": 3e-2}
+K2_VS_F64 = 4.0
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s, bf16
+# tensor-core FLOP/s, float32 CUDA-core FLOP/s
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # configs/train_dancetrack.yaml, the fields the streaming slice reads
 CONFIG = {
@@ -55,7 +90,14 @@ CONFIG = {
     "MISS_TOLERANCE": 30, "TRACK_SLOTS": 64, "DTYPE": "bfloat16",
     "EVAL_SHORT_SIDE": 800, "EVAL_MAX_SIDE": 1536,
 }
+# configs/train_dancetrack_windowed.yaml: the same fields but these
+WINDOWED_CONFIG = dict(
+    CONFIG, NUM_ENC_LAYERS=3, ENCODER_TYPE="windowed", WINDOW_SIZE=8,
+    WINDOWED_LEPE=True, WINDOWED_BOTTOMUP=True, WINDOWED_RELPOS=True,
+    WINDOWED_PRENORM=False, EVAL_CACHE=True)
+HYBRID_CONFIG = dict(CONFIG, ENCODER_TYPE="hybrid")
 N_FRAMES = 8
+N_HYBRID_FRAMES = 2
 CANVAS = (800, 1536)
 ORI_HW = (720, 1440)         # resizes to 768x1536: the last 32 rows are pad
 RESIZED = (768, 1536)
@@ -63,18 +105,6 @@ RESIZED = (768, 1536)
 
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
-
-
-def msda_inputs(seed, b, shapes, m, d, p, lq, dtype, device):
-    rng = np.random.default_rng(seed)
-    s = sum(h * w for h, w in shapes)
-    value = rng.normal(size=(b, s, m, d)).astype(np.float32)
-    loc = rng.uniform(-0.15, 1.15, size=(b, lq, m, len(shapes), p, 2)
-                      ).astype(np.float32)
-    aw = rng.uniform(size=(b, lq, m, len(shapes) * p)).astype(np.float32)
-    aw = (aw / aw.sum(-1, keepdims=True)).reshape(b, lq, m, len(shapes), p)
-    return (torch.from_numpy(value).to(device, dtype),
-            torch.from_numpy(loc).to(device), torch.from_numpy(aw).to(device))
 
 
 def median_ms(fn, runs: int = 20) -> float:
@@ -93,8 +123,64 @@ def median_ms(fn, runs: int = 20) -> float:
     return float(np.median(times))
 
 
-def phase_kernels(msda_cuda, plain, device):
-    """Kernel vs plain version on the card; returns (max f32 error, times)."""
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    """(least time in ms, "bytes" or "operations") on an H100 SXM."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+# ------------------------------------------------------------------ build
+def phase_build():
+    from memotr_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    paths = _build.build("msda_fwd", "window_attn_fwd")
+    say("2 build", f"msda_fwd and window_attn_fwd (nvcc, sm_90a, in "
+        f"parallel) in {time.perf_counter() - t0:.1f} s")
+    for name, path in paths.items():
+        entry = None
+        for line in (path.parent / "build.log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and entry:
+                spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                say("2 build", f"ptxas {name}: {entry}: {m.group(1)} "
+                    f"registers, {spills}")
+                entry = None
+
+
+# ------------------------------------------------------------------- K1
+def msda_inputs(seed, b, shapes, m, d, p, lq, dtype, device):
+    rng = np.random.default_rng(seed)
+    s = sum(h * w for h, w in shapes)
+    value = rng.normal(size=(b, s, m, d)).astype(np.float32)
+    loc = rng.uniform(-0.15, 1.15, size=(b, lq, m, len(shapes), p, 2)
+                      ).astype(np.float32)
+    aw = rng.uniform(size=(b, lq, m, len(shapes) * p)).astype(np.float32)
+    aw = (aw / aw.sum(-1, keepdims=True)).reshape(b, lq, m, len(shapes), p)
+    return (torch.from_numpy(value).to(device, dtype),
+            torch.from_numpy(loc).to(device), torch.from_numpy(aw).to(device))
+
+
+def msda_bound(value, loc, aw):
+    b, _, m, d = value.shape
+    lq, nl, p = loc.shape[1], loc.shape[3], loc.shape[4]
+    nbytes = (value.numel() * value.element_size() + loc.numel() * 4
+              + aw.numel() * 4 + b * lq * m * d * value.element_size())
+    # per sample and channel: 4 corner multiply-adds and the weight, in f32
+    flops = b * lq * m * nl * p * d * 10
+    return bound(nbytes, flops, torch.float32)
+
+
+def phase_k1(device):
+    """K1 vs plain version on the card; returns (max f32 error, times)."""
+    from memotr_tpu_torch.ops import msda_cuda
+    from memotr_tpu_torch.ops.msda import ms_deform_attn_torch as plain
     cases = [("encoder", 1, ENC_SHAPES, 8, 32, 4, sum(h * w for h, w in ENC_SHAPES)),
              ("decoder_b1", 1, ENC_SHAPES, 8, 32, 4, 364),
              ("decoder_b2", 2, ENC_SHAPES, 8, 32, 4, 364),
@@ -118,7 +204,7 @@ def phase_kernels(msda_cuda, plain, device):
                 else:
                     assert err <= BF16_ATOL, (name, err)
                     tol = f"atol {BF16_ATOL} vs plain f32 on bf16 inputs"
-                say("3 kernel", f"{name} B={b} Lq={lq} M={m} D={d} P={p} "
+                say("3 K1", f"{name} B={b} Lq={lq} M={m} D={d} P={p} "
                     f"L={len(shapes)} {str(dtype)[6:]}: max_abs_err {err:.3e} "
                     f"({tol}) ok")
             if name in ("encoder", "decoder_b1", "decoder_b2"):
@@ -127,13 +213,181 @@ def phase_kernels(msda_cuda, plain, device):
                 k_ms = median_ms(lambda: msda_cuda.ms_deform_attn_cuda(
                     v, shapes, loc, aw))
                 p_ms = median_ms(lambda: plain(v, shapes, loc, aw))
-                times[name] = (k_ms, p_ms)
-                say("3 kernel", f"{name} bf16 median of 20: kernel {k_ms:.4f} "
-                    f"ms, plain {p_ms:.4f} ms")
+                b_ms, b_by = msda_bound(v, loc, aw)
+                times[name] = (k_ms, p_ms, b_ms, b_by)
+                say("3 K1", f"{name} bf16 median of 20: kernel {k_ms:.4f} "
+                    f"ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return worst, times
 
 
-def synthetic_frames(seed: int = 0):
+# ------------------------------------------------------------------- K2
+def canvas_mask(device) -> torch.Tensor:
+    """(1, 800, 1536) padding mask of the synthetic frames."""
+    mask = torch.ones((1,) + CANVAS, dtype=torch.bool, device=device)
+    mask[:, :RESIZED[0], :RESIZED[1]] = False
+    return mask
+
+
+def k2_case(name, dtype, device, seed=0):
+    """(args, (heads, window_h, window_w)) of a window_attention call: the
+    main path's level maps (800x1536 canvas, C=256, 8 heads, window 8)
+    padded to window multiples with the canvas's mask, or an awkward one."""
+    from memotr_tpu_torch.models.memotr import _downsample_mask
+    from memotr_tpu_torch.ops.window_attn import grid_transpose
+    rng = np.random.default_rng(seed)
+    if name == "awkward":
+        b, heads, win = 2, 4, 4
+        mask = torch.zeros((b, 16, 24), dtype=torch.bool, device=device)
+        mask[:, :, 21:] = True
+        mask[1, :win, :win] = True             # a fully padded window
+        grid, with_bias = False, False
+    else:
+        b, heads, win = 1, 8, 8
+        lvl = {"window_l0": 0, "grid_l0": 0, "grid_l3": 3}[name]
+        h, w = ENC_SHAPES[lvl]
+        mask = _downsample_mask(canvas_mask(device), h, w)
+        mask = F.pad(mask, (0, (-w) % win, 0, (-h) % win), value=True)
+        grid, with_bias = name.startswith("grid"), True
+    c = 32 if name == "awkward" else 256
+    hp, wp = mask.shape[1:]
+    wh, ww = (hp // win, wp // win) if grid else (win, win)
+    l = wh * ww
+
+    def dev(shape, scale):
+        return torch.from_numpy((rng.normal(size=shape) * scale).astype(
+            np.float32)).to(device)
+    x, pos = dev((b, hp, wp, c), 1.0).to(dtype), dev((b, hp, wp, c), 0.5).to(dtype)
+    if grid:
+        x, pos, mask = (grid_transpose(t, win).contiguous()
+                        for t in (x, pos, mask))
+    args = (x, pos, mask, dev((3 * c, c), c ** -0.5), dev((3 * c,), 0.1),
+            dev((c, c), c ** -0.5), dev((c,), 0.1),
+            dev((heads, l, l), 0.3) if with_bias else None)
+    return args, (heads, wh, ww)
+
+
+def library_window_attention(x, pos, mask, in_w, in_b, out_w, out_b, bias,
+                             heads, wh, ww):
+    """The yardstick: K2's function as a composition of library calls
+    (partition, three torch.matmul, scaled_dot_product_attention with the
+    bias and key mask as attn_mask, torch.matmul, merge).  Timed only."""
+    b, h, w, c = x.shape
+    l, dh, dt = wh * ww, c // heads, x.dtype
+
+    def part(t):
+        t = t.reshape(b, h // wh, wh, w // ww, ww, -1)
+        return t.permute(0, 1, 3, 2, 4, 5).reshape(-1, l, t.shape[-1])
+    q, v = part(x + pos), part(x)
+    m = part(mask[..., None]).squeeze(-1)
+    m = m & ~m.all(dim=1, keepdim=True)
+    wq, wk, wv = in_w.to(dt).chunk(3)
+    bq, bk, bv = in_b.to(dt).chunk(3)
+    heads_of = lambda t: t.view(-1, l, heads, dh).transpose(1, 2)  # noqa: E731
+    qh = heads_of(torch.matmul(q, wq.t()) + bq)
+    kh = heads_of(torch.matmul(q, wk.t()) + bk)
+    vh = heads_of(torch.matmul(v, wv.t()) + bv)
+    attn_mask = torch.zeros((1, 1, l, l), dtype=dt, device=x.device) \
+        if bias is None else bias[None].to(dt)
+    attn_mask = attn_mask.masked_fill(m[:, None, None, :], float("-inf"))
+    o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=attn_mask)
+    y = torch.matmul(o.transpose(1, 2).reshape(-1, l, c), out_w.to(dt).t()) \
+        + out_b.to(dt)
+    y = y.reshape(b, h // wh, w // ww, wh, ww, c)
+    return y.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
+
+
+def k2_bound(args, geo):
+    x, bias = args[0], args[7]
+    heads, wh, ww = geo
+    b, h, w, c = x.shape
+    tokens, l = b * h * w, wh * ww
+    nbytes = (3 * tokens * c * x.element_size() + tokens
+              + (4 * c * c + 4 * c) * 4
+              + (bias.numel() * 4 if bias is not None else 0))
+    flops = 8 * c * c * tokens + 4 * l * c * tokens
+    return bound(nbytes, flops, x.dtype)
+
+
+def phase_k2(device):
+    """K2 vs plain version on the card; returns (max f32 error, times)."""
+    from memotr_tpu_torch.ops.window_attn import window_attention_torch
+    from memotr_tpu_torch.ops.window_attn_cuda import window_attention_cuda
+    worst = 0.0
+    times = {}
+    with torch.inference_mode():
+        for name in ("window_l0", "grid_l0", "grid_l3", "awkward"):
+            for dtype in (torch.float32, torch.bfloat16):
+                args, geo = k2_case(name, dtype, device)
+                out = window_attention_cuda(*args, *geo)
+                ref = window_attention_torch(args[0].float(),
+                                             args[1].float(), *args[2:],
+                                             *geo)
+                torch.cuda.synchronize()
+                assert torch.isfinite(out).all(), (name, dtype)
+                err = (out.float() - ref).abs().max().item()
+                if dtype == torch.float32:
+                    torch.testing.assert_close(out, ref, **K2_F32_TOL)
+                    worst = max(worst, err)
+                    tol = (f"atol {K2_F32_TOL['atol']} rtol "
+                           f"{K2_F32_TOL['rtol']}")
+                else:
+                    assert err <= K2_BF16_ATOL, (name, err)
+                    tol = f"atol {K2_BF16_ATOL} vs plain f32 on bf16 inputs"
+                x = args[0]
+                say("4 K2", f"{name} x {tuple(x.shape)} window {geo[1]}x"
+                    f"{geo[2]} (L={geo[1] * geo[2]}) heads {geo[0]} bias "
+                    f"{args[7] is not None} {str(dtype)[6:]}: max_abs_err "
+                    f"{err:.3e} ({tol}) ok")
+            if name == "awkward":
+                continue
+            args, geo = k2_case(name, torch.bfloat16, device, seed=1)
+            lib = library_window_attention(*args, *geo)
+            ref = window_attention_torch(args[0].float(), args[1].float(),
+                                         *args[2:], *geo)
+            lib_err = (lib.float() - ref).abs().max().item()
+            assert lib_err <= K2_BF16_ATOL, ("library", name, lib_err)
+            k_ms = median_ms(lambda: window_attention_cuda(*args, *geo))
+            p_ms = median_ms(lambda: window_attention_torch(*args, *geo))
+            l_ms = median_ms(lambda: library_window_attention(*args, *geo))
+            b_ms, b_by = k2_bound(args, geo)
+            times[name] = (k_ms, p_ms, l_ms, b_ms, b_by)
+            say("4 K2", f"{name} bf16 median of 20: kernel {k_ms:.4f} ms, "
+                f"plain {p_ms:.4f} ms, library composition {l_ms:.4f} ms "
+                f"(its max_abs_err {lib_err:.3e}), bound {b_ms:.4f} ms "
+                f"({b_by})")
+            parts = device_ms_by_kernel(
+                lambda: window_attention_cuda(*args, *geo))
+            say("4 K2", f"{name} bf16 device time by CUDA kernel (profiler, "
+                f"10 calls): " + (", ".join(
+                    f"{kernel_name(k)} {v:.4f} ms" for k, v in parts.items())
+                    or "no kernel events recorded"))
+    return worst, times
+
+
+def kernel_name(key: str) -> str:
+    """``void (anonymous namespace)::f<T>(args)`` -> ``f<T>``."""
+    m = re.search(r"(\w+(?:<[^>]*>)?)\(", key)
+    return m.group(1) if m else key
+
+
+def device_ms_by_kernel(fn, calls: int = 10) -> dict:
+    """Mean device time per call of each CUDA kernel that ``fn`` runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / calls
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+# ---------------------------------------------------------------- slices
+def synthetic_frames(n_frames: int, seed: int = 0):
     """Moving textured blocks over a textured background (as bench.py draws
     its JPEG sequence), already at the resized 768x1536, on the 800x1536
     canvas with the last rows padded."""
@@ -145,7 +399,7 @@ def synthetic_frames(seed: int = 0):
     tex = [rng.integers(100, 255, (160, 120, 3), np.uint8) for _ in range(8)]
     mask = np.ones(CANVAS, bool)
     mask[:h, :w] = False
-    for t in range(N_FRAMES):
+    for t in range(n_frames):
         canvas = np.zeros(CANVAS + (3,), np.uint8)
         img = bg.copy()
         for i in range(8):
@@ -181,7 +435,24 @@ def random_weights_(model, seed: int = 7):
     return model
 
 
-def phase_slice(msda_cuda, device):
+def reset_counts():
+    from memotr_tpu_torch.ops import msda_cuda, window_attn_cuda
+    msda_cuda.launches = 0
+    window_attn_cuda.launches = 0
+
+
+def read_counts():
+    from memotr_tpu_torch.ops import msda_cuda, window_attn_cuda
+    return {"msda_fwd": msda_cuda.launches,
+            "window_attn_fwd": window_attn_cuda.launches}
+
+
+def phase_slice(tag, config, n_frames, per_frame, device, live="first"):
+    """Streams ``n_frames`` synthetic frames of ``config`` through the
+    Submitter; checks each kernel's launches per frame (``per_frame``),
+    finite results and, unless ``live`` is None, live tracks in the first
+    (``"first"``) or some (``"any"``) frame and a non-empty MOT txt.
+    Returns the model and the launch counts of the run."""
     from memotr_tpu_torch.engine.submit import Submitter
     from memotr_tpu_torch.models.memotr import build_model
 
@@ -198,78 +469,196 @@ def phase_slice(msda_cuda, device):
             self.live.append(int(results["mask"].sum()))
             super()._write_frame(i, results, ori_hw, path, bdd_results)
 
-    model = random_weights_(build_model(CONFIG)).to(device).eval()
+    model = random_weights_(build_model(config)).to(device).eval()
     with tempfile.TemporaryDirectory() as out_dir:
-        sub = CheckedSubmitter("DanceTrack", synthetic_frames(), "synthetic",
-                               out_dir, model, CONFIG, device)
-        msda_cuda.launches = 0
+        sub = CheckedSubmitter("DanceTrack", synthetic_frames(n_frames),
+                               "synthetic", out_dir, model, config, device)
+        reset_counts()
         sub.run()
-        launches = msda_cuda.launches
+        counts = read_counts()
         with open(os.path.join(out_dir, "tracker", "synthetic.txt")) as f:
             lines = f.read().splitlines()
-    live = sub.live
-    assert len(live) == N_FRAMES, live
-    per_frame = CONFIG["NUM_ENC_LAYERS"] + CONFIG["NUM_DEC_LAYERS"]
-    assert launches == per_frame * N_FRAMES, \
-        f"MSDA kernel launches {launches}, expected {per_frame * N_FRAMES}"
-    assert live[0] > 0, f"no live track after frame 1: {live}"
-    assert lines, "empty MOT txt"
-    ms = [1e3 * s for s in sub.frame_seconds[2:]]
-    say("4 slice", f"live slots per frame {live}; MOT txt lines {len(lines)}; "
-        f"first line {lines[0].strip()}")
-    say("4 slice", f"msda kernel launches {launches} = {per_frame} x "
-        f"{N_FRAMES} frames ok")
-    say("4 slice", f"bf16 ms/frame over frames 3-{N_FRAMES} (upload, step, "
-        f"fetch): mean {np.mean(ms):.2f} median {np.median(ms):.2f} "
-        f"min {np.min(ms):.2f} max {np.max(ms):.2f}")
-    return model, launches
+    assert len(sub.live) == n_frames, sub.live
+    for kernel, n in per_frame.items():
+        assert counts[kernel] == n * n_frames, \
+            f"{kernel} launches {counts[kernel]}, expected {n} x {n_frames}"
+        say(tag, f"{kernel} launches {counts[kernel]} = {n} x {n_frames} "
+            f"frames ok")
+    if live is not None:
+        assert (sub.live[0] if live == "first" else max(sub.live)) > 0, \
+            f"no live track: {sub.live}"
+        assert lines, "empty MOT txt"
+    say(tag, f"live slots per frame {sub.live}; MOT txt lines {len(lines)}"
+        + (f"; first line {lines[0].strip()}" if lines else ""))
+    ms = [1e3 * s for s in sub.frame_seconds]
+    steady = ms[2:] if len(ms) > 2 else ms[1:]
+    say(tag, f"bf16 ms/frame (upload, step, fetch) all frames "
+        f"{[round(v, 2) for v in ms]}; frames {len(ms) - len(steady) + 1}-"
+        f"{len(ms)}: mean {np.mean(steady):.2f} median "
+        f"{np.median(steady):.2f} min {np.min(steady):.2f} max "
+        f"{np.max(steady):.2f}")
+    return model, counts
 
 
-def phase_frame_f32(model_bf16, device):
-    """One float32 frame through the kernel and through the plain MSDA."""
+def phase_frame_f32(tag, config, model_bf16, device, frame_atol):
+    """One float32 frame through the kernels and through the plain
+    versions of every kernel the model runs.  Each K2 call of the kernel
+    run is also held against the plain version on its own inputs."""
     from memotr_tpu_torch.engine.submit import normalize_uint8
-    from memotr_tpu_torch.models import msda_module
+    from memotr_tpu_torch.models import msda_module, windowed_encoder
     from memotr_tpu_torch.models.frame_step import model_forward
     from memotr_tpu_torch.models.memotr import build_model
     from memotr_tpu_torch.ops.msda import ms_deform_attn_torch
+    from memotr_tpu_torch.ops.window_attn import window_attention_torch
+    from memotr_tpu_torch.ops.window_attn_cuda import window_attention_cuda
     from memotr_tpu_torch.structures.track_state import TrackState
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    say("5 frame f32", "TF32 off for convs (cudnn.allow_tf32=False) and "
-        "matmuls (cuda.matmul.allow_tf32=False)")
-    model = build_model(dict(CONFIG, DTYPE="float32"))
+    say(tag, "TF32 off for convs (cudnn.allow_tf32=False) and matmuls "
+        "(cuda.matmul.allow_tf32=False)")
+    model = build_model(dict(config, DTYPE="float32"))
     model.load_state_dict(model_bf16.state_dict())
     model.to(device).eval()
-    fr = next(synthetic_frames(seed=1))
+    fr = next(synthetic_frames(1, seed=1))
     images = normalize_uint8(torch.from_numpy(fr["image"])[None].to(device))
     mask = torch.from_numpy(fr["mask"])[None].to(device)
-    state = TrackState.empty(1, CONFIG["TRACK_SLOTS"], CONFIG["HIDDEN_DIM"],
+    state = TrackState.empty(1, config["TRACK_SLOTS"], config["HIDDEN_DIM"],
                              1, device=device)
+    calls = []
+
+    def k2_checked(*args):
+        """The kernel, held against float64 beside the plain version."""
+        out = window_attention_cuda(*args)
+        ref = window_attention_torch(*args)
+        exact = window_attention_torch(*(
+            a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+            for a in args))
+        e_kern = (out.double() - exact).abs().max().item()
+        e_plain = (ref.double() - exact).abs().max().item()
+        assert e_kern <= K2_VS_F64 * e_plain + 1e-6, (e_kern, e_plain)
+        calls.append((args[-2] * args[-1], e_kern, e_plain))
+        return out
+
+    kernels = (msda_module.ms_deform_attn, windowed_encoder.window_attention)
     with torch.inference_mode():
-        kern = model_forward(model, images, mask, state)
-        dispatch = msda_module.ms_deform_attn
-        msda_module.ms_deform_attn = ms_deform_attn_torch
+        windowed_encoder.window_attention = k2_checked
         try:
+            kern = model_forward(model, images, mask, state)
+            msda_module.ms_deform_attn = ms_deform_attn_torch
+            windowed_encoder.window_attention = window_attention_torch
             plain = model_forward(model, images, mask, state)
+            if calls:
+                g = torch.Generator(device).manual_seed(0)
+
+                def k2_perturbed(*args):
+                    y = window_attention_torch(*args)
+                    return y * (1 + 1e-6 * torch.randn(
+                        y.shape, generator=g, device=device))
+                windowed_encoder.window_attention = k2_perturbed
+                nudged = model_forward(model, images, mask, state)
         finally:
-            msda_module.ms_deform_attn = dispatch
+            msda_module.ms_deform_attn, windowed_encoder.window_attention = \
+                kernels
     torch.cuda.synchronize()
-    for key, atol in FRAME_ATOL.items():
+    if calls:
+        say(tag, "sensitivity: plain versions with K2 outputs x (1 + 1e-6 "
+            "N(0,1)) move pred_logits by "
+            f"{(nudged['pred_logits'] - plain['pred_logits']).abs().max().item():.3e}"
+            " and pred_boxes by "
+            f"{(nudged['pred_boxes'] - plain['pred_boxes']).abs().max().item():.3e}")
+        say(tag, f"{len(calls)} K2 calls in the frame (L = "
+            f"{sorted({c[0] for c in calls})}), each on its own inputs vs "
+            f"float64: kernel max_abs_err {max(c[1] for c in calls):.3e}, "
+            f"plain float32 {max(c[2] for c in calls):.3e} (kernel <= "
+            f"{K2_VS_F64} x plain + 1e-6 per call) ok")
+    for key, atol in frame_atol.items():
         assert torch.isfinite(kern[key]).all(), key
         err = (kern[key] - plain[key]).abs().max().item()
         assert err <= atol, f"{key}: kernel vs plain max_abs_err {err} > {atol}"
-        say("5 frame f32", f"{key} {tuple(kern[key].shape)} kernel vs plain "
+        say(tag, f"{key} {tuple(kern[key].shape)} kernels vs plain "
             f"max_abs_err {err:.3e} (atol {atol}) ok")
+
+
+def kernel_family(name: str) -> str:
+    n = name.lower()
+    if "proj_kernel" in n or "attn_kernel" in n:
+        return "K2 window_attn_fwd"
+    if "msda_fwd" in n:
+        return "K1 msda_fwd"
+    if any(k in n for k in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")):
+        return "GEMM"
+    if any(k in n for k in ("conv", "cudnn", "implicit")):
+        return "convolution"
+    if "norm" in n:
+        return "normalization"
+    return "elementwise, copies, reductions"
+
+
+def phase_profile(model, config, device, n_frames: int = 3):
+    """Windowed frames after two warm-up frames: timed, then the same
+    frames again under torch.profiler for device time by kernel family."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from memotr_tpu_torch.engine.submit import normalize_uint8
+    from memotr_tpu_torch.models.eval_cache import EvalCache
+    from memotr_tpu_torch.models.frame_step import eval_frame_step
+    from memotr_tpu_torch.structures.track_state import TrackState
+
+    cache = EvalCache(model, device)
+    state = TrackState.empty(1, config["TRACK_SLOTS"], config["HIDDEN_DIM"],
+                             1, device=device)
+    frames = list(synthetic_frames(2 + n_frames, seed=2))
+    frames += frames[2:]                 # the timed frames, again profiled
+
+    def step(fr, state):
+        images = normalize_uint8(torch.from_numpy(fr["image"])[None]
+                                 .to(device))
+        ctx = cache.lookup(fr["mask"][None])
+        mask = torch.from_numpy(fr["mask"])[None].to(device)
+        results, state = eval_frame_step(
+            model, images, mask, state, config["DET_SCORE_THRESH"],
+            config["TRACK_SCORE_THRESH"], config["MISS_TOLERANCE"], ctx)
+        for v in results.values():               # fetch, as the Submitter
+            v.cpu()
+        return state
+
+    with torch.inference_mode():
+        for fr in frames[:2]:
+            state = step(fr, state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for fr in frames[2:2 + n_frames]:
+            state = step(fr, state)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n_frames
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for fr in frames[2 + n_frames:]:
+                state = step(fr, state)
+            torch.cuda.synchronize()
+            wall_prof = (time.perf_counter() - t0) * 1e3 / n_frames
+    fam = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            k = kernel_family(e.key)
+            fam[k] = fam.get(k, 0.0) + e.self_device_time_total / 1e3 / n_frames
+    busy = sum(fam.values())
+    say("9 profile", f"windowed bf16, {n_frames} frames: host wall "
+        f"{wall:.2f} ms/frame ({wall_prof:.2f} under the profiler), device "
+        f"busy {busy:.2f} ms/frame (profiler), idle share of the unprofiled "
+        f"wall {1 - busy / wall:.3f}")
+    for k, v in sorted(fam.items(), key=lambda kv: -kv[1]):
+        say("9 profile", f"  {k}: {v:.3f} ms/frame ({v / busy:.1%} of busy)")
+    assert fam.get("K2 window_attn_fwd", 0) > 0, "no K2 time in the trace"
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke run needs "
                          "an NVIDIA GPU")
-    from memotr_tpu_torch.ops import msda_cuda
-    from memotr_tpu_torch.ops.msda import ms_deform_attn_torch
-
     device = torch.device("cuda", 0)
     t_all = time.perf_counter()
     card = subprocess.run(
@@ -281,34 +670,65 @@ def main() -> int:
         f"x{torch.cuda.device_count()}; card and power limit:")
     print(card, flush=True)
 
+    phase_build()
+
     t0 = time.perf_counter()
-    lib = msda_cuda.build()
-    say("2 build", f"{lib} from {KERNEL_SRC} in "
+    k1_err, k1_times = phase_k1(device)
+    say("3 K1", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k2_err, k2_times = phase_k2(device)
+    say("4 K2", f"done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    model, _ = phase_slice("5 deformable", CONFIG, N_FRAMES,
+                           {"msda_fwd": CONFIG["NUM_ENC_LAYERS"]
+                            + CONFIG["NUM_DEC_LAYERS"], "window_attn_fwd": 0},
+                           device)
+    phase_frame_f32("6 deformable f32", CONFIG, model, device, FRAME_ATOL)
+    del model
+    say("6 deformable f32", f"phases 5-6 done in "
         f"{time.perf_counter() - t0:.1f} s")
-    regs = [ln.strip() for ln in (lib.parent / "build.log").read_text()
-            .splitlines() if "registers" in ln]
-    if regs:
-        say("2 build", f"ptxas: {regs[0]}")
 
     t0 = time.perf_counter()
-    worst, times = phase_kernels(msda_cuda, ms_deform_attn_torch, device)
-    say("3 kernel", f"done in {time.perf_counter() - t0:.1f} s")
+    n_levels = WINDOWED_CONFIG["NUM_FEATURE_LEVELS"]
+    model, counts = phase_slice(
+        "7 windowed", WINDOWED_CONFIG, N_FRAMES,
+        {"window_attn_fwd": WINDOWED_CONFIG["NUM_ENC_LAYERS"] * n_levels,
+         "msda_fwd": WINDOWED_CONFIG["NUM_DEC_LAYERS"]}, device, live="any")
+    phase_frame_f32("8 windowed f32", WINDOWED_CONFIG, model, device,
+                    WINDOWED_FRAME_ATOL)
+    phase_profile(model, WINDOWED_CONFIG, device)
+    del model
+    say("9 profile", f"phases 7-9 done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    model, launches = phase_slice(msda_cuda, device)
-    say("4 slice", f"done in {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    phase_frame_f32(model, device)
-    say("5 frame f32", f"done in {time.perf_counter() - t0:.1f} s")
+    model, hybrid_counts = phase_slice(
+        "10 hybrid", HYBRID_CONFIG, N_HYBRID_FRAMES,
+        {"window_attn_fwd": HYBRID_CONFIG["NUM_ENC_LAYERS"],
+         "msda_fwd": HYBRID_CONFIG["NUM_ENC_LAYERS"]
+         + HYBRID_CONFIG["NUM_DEC_LAYERS"]}, device, live=None)
+    del model
+    say("10 hybrid", f"done in {time.perf_counter() - t0:.1f} s")
     say("all", f"{time.perf_counter() - t_all:.1f} s")
 
-    k_ms, p_ms = times["encoder"]
+    k1_ms, k1_plain, k1_bound, k1_by = k1_times["encoder"]
+    k2_ms, k2_plain, k2_lib, k2_bound_ms, k2_by = k2_times["window_l0"]
     print(card, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "msda_fwd", "route": "cuda", "source": KERNEL_SRC,
-        "replaces": TPU_KERNEL, "launches": launches,
-        "max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms}]}), flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "msda_fwd", "route": "cuda", "source": K1_SRC,
+         "replaces": K1_TPU, "launches": counts["msda_fwd"],
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
+         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
+         "shape": "encoder B=1 Lq=25512 bf16",
+         "launches_hybrid": hybrid_counts["msda_fwd"]},
+        {"name": "window_attn_fwd", "route": "cuda", "source": K2_SRC,
+         "replaces": K2_TPU, "launches": counts["window_attn_fwd"],
+         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
+         "bound_ms": k2_bound_ms, "bound_by": k2_by, "library_ms": k2_lib,
+         "library": "composition: matmuls + scaled_dot_product_attention",
+         "shape": "window level 0 104x192 L=64 bf16",
+         "launches_hybrid": hybrid_counts["window_attn_fwd"]}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

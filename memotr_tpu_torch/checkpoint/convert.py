@@ -11,6 +11,14 @@ The inverse of ``memotr_tpu.checkpoint.torch_convert.convert_torch_state_dict``
 - the ``frozen`` collection -> FrozenBatchNorm buffers;
 - the box heads also under the decoder alias ``transformer.decoder.bbox_embed``.
 
+The same rules cover the windowed and hybrid encoders' trees, whose port
+modules carry the JAX names (``transformer/encoder/layer_<i>[/fine]`` ->
+``transformer.encoder.layers.<i>[.fine]``): ``win_attn/{q,k,v}_proj`` join
+into ``win_attn.in_proj_weight``; the depthwise ``lepe_dwconv`` kernel
+(3, 3, 1, C) becomes (C, 1, 3, 3); ``cpb_mlp1/2`` (per layer, or on the
+encoder), ``topdown_mix``, ``bottomup_mix``, ``final_norm`` and the hybrid
+``coarse`` deformable layer map like any Dense, LayerNorm or MSDA module.
+
 Trees are nested dicts of array-likes (``np.asarray`` is applied to every
 leaf), so Orbax-restored JAX params convert without importing JAX here.
 """

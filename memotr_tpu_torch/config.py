@@ -10,8 +10,9 @@ from __future__ import annotations
 from typing import Any
 
 # Defaults for keys an experiment YAML may omit (memotr_tpu/config.py).
-# ``MSDA_IMPL`` and ``TOKEN_SHARD_AXIS`` are TPU dispatch knobs the port
-# ignores: one CUDA kernel serves every query count on one device.
+# ``MSDA_IMPL``, ``WINDOWED_ATTN_IMPL`` and ``TOKEN_SHARD_AXIS`` are TPU
+# dispatch knobs the port ignores: one CUDA kernel of each kind serves every
+# shape on one device.
 _DEFAULTS = {
     "MERGE_DET_TRACK_LAYER": 0,
     "EXTRA_TRACK_ATTN": False,
@@ -21,6 +22,14 @@ _DEFAULTS = {
     "EVAL_SHORT_SIDE": 800,
     "EVAL_MAX_SIDE": 1536,
     "ENCODER_TYPE": "deformable",
+    "WINDOW_SIZE": 8,
+    "WINDOWED_LEPE": True,
+    "WINDOWED_BOTTOMUP": True,
+    "WINDOWED_RELPOS": True,
+    "WINDOWED_PRENORM": False,
+    "WINDOWED_SHARED_CPB": False,
+    "HYBRID_DEFORM_MIN_LEVEL": 1,
+    "EVAL_CACHE": True,
 }
 
 

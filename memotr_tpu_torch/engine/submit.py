@@ -4,7 +4,9 @@
 Per sequence: upload each uint8 frame, normalize it on the device, run the
 frame step (forward -> lifecycle -> query updater), fetch the slot results,
 filter by score and area, and append MOT txt lines (or collect BDD100K
-JSON).  The ``Submitter`` takes any iterable of frame dicts
+JSON).  Unless ``EVAL_CACHE`` is false, the frame step reads its
+mask-dependent constants from an ``EvalCache``, which rebuilds them for any
+frame whose padding mask differs from the cached one.  The ``Submitter`` takes any iterable of frame dicts
 ``{"image": uint8 (H, W, 3), "mask": bool (H, W), "ori_hw", "path"}``, so it
 runs without an image decoder; ``submit(config)`` feeds it ``SeqDataset``.
 """
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import cfg_get, yaml_to_dict
+from ..models.eval_cache import EvalCache
 from ..models.frame_step import eval_frame_step
 from ..models.memotr import build_model
 from ..structures.track_state import TrackState
@@ -80,6 +83,16 @@ def normalize_uint8(images: torch.Tensor) -> torch.Tensor:
     return (images.float() / 255.0 - mean) / std
 
 
+def resolve_device(device: torch.device | str) -> torch.device:
+    """The device an entry point runs on: a CUDA device unless the caller
+    asks for the CPU, and an error when CUDA is asked for and absent."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the GPU; pass "
+                           "device='cpu' to run on the CPU")
+    return device
+
+
 class Submitter:
     """Streams one sequence through the model and writes its results.
 
@@ -89,14 +102,16 @@ class Submitter:
 
     def __init__(self, dataset_name: str, frames: Iterable[Dict],
                  seq_name: str, outputs_dir: str, model, config: dict,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
+        self.device = resolve_device(device)
         self.dataset_name = dataset_name
         self.frames = frames
         self.seq_name = seq_name
         self.predict_dir = os.path.join(outputs_dir, "tracker")
         os.makedirs(self.predict_dir, exist_ok=True)
         self.model = model
-        self.device = torch.device(device)
+        self.eval_cache = EvalCache(model, self.device) \
+            if cfg_get(config, "EVAL_CACHE") else None
         self.det_thresh = config["DET_SCORE_THRESH"]
         self.track_thresh = config["TRACK_SCORE_THRESH"]
         self.result_thresh = config["RESULT_SCORE_THRESH"]
@@ -135,10 +150,12 @@ class Submitter:
             images = torch.from_numpy(np.ascontiguousarray(item["image"]))[None]
             mask = torch.from_numpy(np.ascontiguousarray(item["mask"]))[None]
             images = normalize_uint8(images.to(self.device))
+            ctx = self.eval_cache.lookup(mask.numpy()) \
+                if self.eval_cache is not None else None
             mask = mask.to(self.device)
             results, state = eval_frame_step(
                 m, images, mask, state, self.det_thresh, self.track_thresh,
-                self.miss_tolerance)
+                self.miss_tolerance, ctx)
             results = {k: v.cpu().numpy() for k, v in results.items()}
             self.frame_seconds.append(time.perf_counter() - t0)
             overflow_total += int(results.pop("slot_overflow").sum())
@@ -162,14 +179,14 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     return ckpt["model"] if "model" in ckpt else ckpt
 
 
-def submit(config: dict, device: torch.device | str | None = None):
+def submit(config: dict, device: torch.device | str = "cuda"):
     """Submit entry: every sequence of the split, one ``Submitter`` each.
 
     Reads ``SUBMIT_DIR/train/config.yaml`` for the model and loads the
-    reference-format ``.pth`` at ``SUBMIT_DIR/SUBMIT_MODEL``."""
+    reference-format ``.pth`` at ``SUBMIT_DIR/SUBMIT_MODEL``.  Runs on the
+    GPU unless ``device="cpu"``."""
     from ..data.seq_dataset import SeqDataset
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = resolve_device(device)
     train_config = yaml_to_dict(
         os.path.join(config["SUBMIT_DIR"], "train/config.yaml"))
     dataset_name = train_config["DATASET"]

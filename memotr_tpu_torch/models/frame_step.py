@@ -3,7 +3,7 @@
 step is a later slice of the port)."""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -13,8 +13,10 @@ from .runtime_tracker import runtime_tracker_step
 
 
 def model_forward(model, images: torch.Tensor, mask: torch.Tensor,
-                  state: TrackState) -> Dict[str, torch.Tensor]:
-    return model(images, mask, state.query_embed, state.ref_pts, state.mask)
+                  state: TrackState, eval_ctx: Optional[Dict] = None
+                  ) -> Dict[str, torch.Tensor]:
+    return model(images, mask, state.query_embed, state.ref_pts, state.mask,
+                 eval_ctx)
 
 
 def apply_query_updater(updater, state: TrackState) -> TrackState:
@@ -26,12 +28,14 @@ def apply_query_updater(updater, state: TrackState) -> TrackState:
 
 def eval_frame_step(model, images: torch.Tensor, mask: torch.Tensor,
                     state: TrackState, det_score_thresh: float,
-                    track_score_thresh: float, miss_tolerance: int
+                    track_score_thresh: float, miss_tolerance: int,
+                    eval_ctx: Optional[Dict] = None
                     ) -> Tuple[Dict[str, torch.Tensor], TrackState]:
     """Returns (results for the writer, next TrackState).  ``results`` holds
     the post-update slot tensors plus ``slot_overflow`` (B,), the newborn
-    candidates dropped because every slot was taken."""
-    out = model_forward(model, images, mask, state)
+    candidates dropped because every slot was taken.  ``eval_ctx``: the
+    eval cache's constants for ``mask`` (``models/eval_cache.py``)."""
+    out = model_forward(model, images, mask, state, eval_ctx)
     state, overflow = runtime_tracker_step(
         state, out, model.n_det_queries, det_score_thresh,
         track_score_thresh, miss_tolerance)

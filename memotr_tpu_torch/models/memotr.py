@@ -14,7 +14,8 @@ submodule (``query_updater.*``), as in the reference.
 """
 from __future__ import annotations
 
-from typing import Dict
+import warnings
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -58,6 +59,12 @@ class MeMOTR(nn.Module):
                  n_dec_layers: int = 6, merge_det_track_layer: int = 0,
                  use_dab: bool = True,
                  encoder_type: str = "deformable",
+                 windowed_window: int = 8, windowed_lepe: bool = True,
+                 windowed_bottomup: bool = True,
+                 windowed_relpos: bool = True,
+                 windowed_prenorm: bool = False,
+                 windowed_shared_cpb: bool = False,
+                 hybrid_deform_min_level: int = 1,
                  update_threshold: float = 0.5,
                  long_memory_lambda: float = 0.01,
                  dtype: torch.dtype = torch.float32):
@@ -68,6 +75,8 @@ class MeMOTR(nn.Module):
         self.hidden_dim = c
         self.use_dab = use_dab
         self.n_dec_layers = n_dec_layers
+        self.n_feature_levels = n_feature_levels
+        self.encoder_type = encoder_type
         self.dtype = dtype
         # reference nesting: backbone.backbone.backbone.<torchvision names>
         self.backbone = nn.ModuleDict(
@@ -94,7 +103,11 @@ class MeMOTR(nn.Module):
             n_dec_points=n_dec_points, n_enc_layers=n_enc_layers,
             n_dec_layers=n_dec_layers, n_det_queries=n_det_queries,
             merge_det_track_layer=merge_det_track_layer, use_dab=use_dab,
-            encoder_type=encoder_type, dtype=dtype)
+            encoder_type=encoder_type, window=windowed_window,
+            use_lepe=windowed_lepe, use_bottomup=windowed_bottomup,
+            use_relpos=windowed_relpos, prenorm=windowed_prenorm,
+            shared_cpb=windowed_shared_cpb,
+            deform_min_level=hybrid_deform_min_level, dtype=dtype)
         if not use_dab:
             # D-DETR infers 2-d reference points from the positional half
             self.transformer.reference_points = nn.Linear(c, 2)
@@ -118,10 +131,13 @@ class MeMOTR(nn.Module):
 
     def forward(self, images: torch.Tensor, img_mask: torch.Tensor,
                 track_query_embed: torch.Tensor, track_ref_pts: torch.Tensor,
-                track_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+                track_mask: torch.Tensor,
+                eval_ctx: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
         """images (B, H, W, 3) normalized; img_mask (B, H, W) True = pad;
         track_query_embed (B, S, C or 2C); track_ref_pts (B, S, 4) logit
-        space; track_mask (B, S) True = live slot.
+        space; track_mask (B, S) True = live slot; eval_ctx: the sequence
+        constants of ``models/eval_cache.py`` for this ``img_mask`` (sine
+        position maps, windowed CPB tables), or None to compute them.
 
         Returns (L = decoder layers, N = Nd + S): pred_logits (B, N, K),
         pred_boxes (B, N, 4), last_ref_pts / init_ref_pts (B, N, 4) logit
@@ -141,7 +157,15 @@ class MeMOTR(nn.Module):
             m = _downsample_mask(img_mask, src.shape[2], src.shape[3])
             srcs.append(src.to(self.dtype))
             masks.append(m)
-            poss.append(sine_position_embedding(m, self.hidden_dim // 2))
+            if eval_ctx is None:
+                poss.append(sine_position_embedding(m, self.hidden_dim // 2))
+            else:
+                pos = eval_ctx["pos_embeds"][i]
+                if pos.shape[1:3] != m.shape[1:]:
+                    raise ValueError(f"eval cache has a {tuple(pos.shape[1:3])} "
+                                     f"position map for a {tuple(m.shape[1:])} "
+                                     f"level {i}")
+                poss.append(pos)
 
         det_query = self.det_query_embed
         if self.use_dab:
@@ -158,8 +182,10 @@ class MeMOTR(nn.Module):
             [torch.zeros((b, self.n_det_queries), dtype=torch.bool,
                          device=images.device), ~track_mask], dim=1)
 
-        dec = self.transformer(srcs, masks, poss, query_embed, ref_pts,
-                               query_mask, self.class_embed)
+        dec = self.transformer(
+            srcs, masks, poss, query_embed, ref_pts, query_mask,
+            self.class_embed,
+            eval_ctx["cpb_tables"] if eval_ctx is not None else None)
         # refs[-2] is the reference entering the last layer
         last_ref = dec["refs"][-2] if self.n_dec_layers > 1 \
             else dec["init_reference"]
@@ -183,6 +209,15 @@ def build_model(config: dict) -> MeMOTR:
     if cfg_get(config, "EXTRA_TRACK_ATTN"):
         raise NotImplementedError("EXTRA_TRACK_ATTN is not ported to PyTorch "
                                   "(ROADMAP.md, queue 1)")
+    encoder_type = cfg_get(config, "ENCODER_TYPE")
+    if (cfg_get(config, "WINDOWED_PRENORM")
+            and encoder_type in ("windowed", "hybrid")
+            and int(config["HIDDEN_DIM"]) >= 256):
+        # the JAX package's measured trap (QUALITY.md round 4)
+        warnings.warn(
+            "WINDOWED_PRENORM=True with HIDDEN_DIM>=256 is a known-bad "
+            "combination (31.2 vs 50.2 HOTA at width 256, QUALITY.md); "
+            "use post-norm at deployment width.", stacklevel=2)
     return MeMOTR(
         num_classes=num_classes_for_dataset(config["DATASET"]),
         n_det_queries=config["NUM_DET_QUERIES"],
@@ -196,7 +231,15 @@ def build_model(config: dict) -> MeMOTR:
         n_dec_layers=config["NUM_DEC_LAYERS"],
         merge_det_track_layer=cfg_get(config, "MERGE_DET_TRACK_LAYER"),
         use_dab=cfg_get(config, "USE_DAB"),
-        encoder_type=cfg_get(config, "ENCODER_TYPE"),
+        encoder_type=encoder_type,
+        windowed_window=int(cfg_get(config, "WINDOW_SIZE")),
+        windowed_lepe=bool(cfg_get(config, "WINDOWED_LEPE")),
+        windowed_bottomup=bool(cfg_get(config, "WINDOWED_BOTTOMUP")),
+        windowed_relpos=bool(cfg_get(config, "WINDOWED_RELPOS")),
+        windowed_prenorm=bool(cfg_get(config, "WINDOWED_PRENORM")),
+        windowed_shared_cpb=bool(cfg_get(config, "WINDOWED_SHARED_CPB")),
+        hybrid_deform_min_level=int(cfg_get(config,
+                                            "HYBRID_DEFORM_MIN_LEVEL")),
         update_threshold=cfg_get(config, "UPDATE_THRESH", 0.5),
         long_memory_lambda=cfg_get(config, "LONG_MEMORY_LAMBDA", 0.01),
         dtype=DTYPES[cfg_get(config, "DTYPE")],

@@ -1,16 +1,19 @@
 """Deformable transformer: level flattening + encoder + decoder
-(counterpart of ``memotr_tpu/models/transformer.py``, deformable encoder
-only; the windowed, conv and hybrid encoders are later slices of the port,
-see ROADMAP.md)."""
+(counterpart of ``memotr_tpu/models/transformer.py``).  The encoder is the
+deformable one, the windowed one (``models/windowed_encoder.py``) or the
+hybrid one (``models/hybrid_encoder.py``); the conv encoder is a later
+slice of the port (ROADMAP.md)."""
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
 
 from .decoder import Decoder
 from .encoder import Encoder
+from .hybrid_encoder import HybridEncoder
+from .windowed_encoder import WindowedEncoder
 
 
 def valid_ratios_from_masks(masks: List[torch.Tensor]) -> torch.Tensor:
@@ -30,18 +33,36 @@ class DeformableTransformer(nn.Module):
                  n_dec_points: int = 4, n_enc_layers: int = 6,
                  n_dec_layers: int = 6, n_det_queries: int = 300,
                  merge_det_track_layer: int = 0, use_dab: bool = True,
-                 encoder_type: str = "deformable",
+                 encoder_type: str = "deformable", window: int = 8,
+                 use_lepe: bool = True, use_bottomup: bool = True,
+                 use_relpos: bool = True, prenorm: bool = False,
+                 shared_cpb: bool = False, deform_min_level: int = 1,
                  dtype: torch.dtype = torch.float32):
+        """``window`` .. ``deform_min_level``: the options of the windowed
+        and hybrid encoders (``WINDOW_SIZE``, ``WINDOWED_*``,
+        ``HYBRID_DEFORM_MIN_LEVEL``)."""
         super().__init__()
-        if encoder_type != "deformable":
-            raise NotImplementedError(
-                f"ENCODER_TYPE={encoder_type!r} is not ported to PyTorch yet "
-                "(ROADMAP.md, queue 1: slice 2)")
         self.use_dab = use_dab
         self.dtype = dtype
         self.level_embed = nn.Parameter(torch.randn(n_levels, d_model))
-        self.encoder = Encoder(n_enc_layers, d_model, d_ffn, n_levels,
-                               n_heads, n_enc_points, dtype)
+        win_opts = dict(window=window, use_lepe=use_lepe,
+                        use_bottomup=use_bottomup, use_relpos=use_relpos,
+                        prenorm=prenorm, dtype=dtype)
+        if encoder_type == "deformable":
+            self.encoder = Encoder(n_enc_layers, d_model, d_ffn, n_levels,
+                                   n_heads, n_enc_points, dtype)
+        elif encoder_type == "windowed":
+            self.encoder = WindowedEncoder(n_enc_layers, d_model, d_ffn,
+                                           n_heads, n_levels,
+                                           shared_cpb=shared_cpb, **win_opts)
+        elif encoder_type == "hybrid":
+            self.encoder = HybridEncoder(n_enc_layers, d_model, d_ffn,
+                                         n_heads, n_levels, n_enc_points,
+                                         deform_min_level, **win_opts)
+        else:
+            raise NotImplementedError(
+                f"ENCODER_TYPE={encoder_type!r} is not ported to PyTorch yet "
+                "(ROADMAP.md, queue 1)")
         self.decoder = Decoder(n_dec_layers, d_model, d_ffn, n_levels,
                                n_heads, n_dec_points, n_det_queries,
                                merge_det_track_layer, use_dab, dtype)
@@ -49,10 +70,13 @@ class DeformableTransformer(nn.Module):
     def forward(self, srcs: List[torch.Tensor], masks: List[torch.Tensor],
                 pos_embeds: List[torch.Tensor], query_embed: torch.Tensor,
                 ref_pts: torch.Tensor, query_mask: torch.Tensor,
-                class_embed: nn.ModuleList) -> Dict[str, torch.Tensor]:
+                class_embed: nn.ModuleList,
+                bias_tables: Optional[List] = None) -> Dict[str, torch.Tensor]:
         """srcs (B, C, H, W) per level; masks (B, H, W) True = pad;
         pos_embeds (B, H, W, C); query_embed (B, Nq, C or 2C); ref_pts
-        (B, Nq, 4) logit space; query_mask (B, Nq) True = dead slot."""
+        (B, Nq, 4) logit space; query_mask (B, Nq) True = dead slot;
+        bias_tables: the windowed encoder's cached CPB tables (eval
+        cache), or None."""
         spatial_shapes = tuple((s.shape[2], s.shape[3]) for s in srcs)
         src_flat = torch.cat([s.flatten(2).transpose(1, 2) for s in srcs],
                              dim=1).contiguous()
@@ -62,8 +86,10 @@ class DeformableTransformer(nn.Module):
              for i, p in enumerate(pos_embeds)], dim=1)
         valid_ratios = valid_ratios_from_masks(masks)
 
-        memory = self.encoder(src_flat, spatial_shapes, valid_ratios,
-                              pos_flat, mask_flat)
+        enc_args = (src_flat, spatial_shapes, valid_ratios, pos_flat,
+                    mask_flat)
+        memory = self.encoder(*enc_args) if bias_tables is None \
+            else self.encoder(*enc_args, bias_tables=bias_tables)
 
         if self.use_dab:
             tgt, query_pos = query_embed, None

@@ -1,15 +1,10 @@
-"""CUDA MSDA forward kernel: build at first use, ctypes binding, wrapper.
+"""CUDA MSDA forward kernel: ctypes binding and wrapper.
 
 Replaces the TPU kernel ``ms_deform_attn_pallas``
 (``memotr_tpu/ops/msda_pallas.py:220``; its ``pallas_call`` is at :187).
 The kernel source is ``memotr_tpu_torch/csrc/msda_fwd.cu``; its header says
-what bounds it on an H100 and how its design answers that.
-
-The shared library is compiled with ``nvcc`` on first use into
-``memotr_tpu_torch/_build/<source hash>/``, under a file lock, and loaded
-with ``ctypes`` (a plain C interface: no PyTorch headers, so the build takes
-seconds).  Nothing here runs at import time: the CPU tests import this
-module on machines without ``nvcc`` or a GPU.
+what bounds it on an H100 and how its design answers that.  It is compiled
+with ``nvcc`` at first use and loaded with ``ctypes`` (``ops/_build.py``).
 
 ``launches`` counts kernel launches (and nothing else), so a run can show
 that its main path went through the kernel.
@@ -17,74 +12,22 @@ that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
-import os
-import subprocess
-from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "msda_fwd.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from . import _build
+
+NAME = "msda_fwd"
 
 launches = 0
-_lib = None
 _shape_tables: Dict[Tuple, torch.Tensor] = {}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA "
-                           "toolkit to build the MSDA kernel")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def build() -> Path:
-    """Compile the kernel library if this source has not been built yet.
-    Returns the path of the shared library."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = BUILD_DIR / key
-    lib_path = out_dir / "libmsda_fwd.so"
-    if lib_path.exists():
-        return lib_path
-    out_dir.mkdir(parents=True, exist_ok=True)
-    with open(out_dir / "lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        try:
-            if lib_path.exists():          # built by another process meanwhile
-                return lib_path
-            tmp = out_dir / f"libmsda_fwd.{os.getpid()}.so"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            (out_dir / "build.log").write_text(
-                " ".join(cmd) + "\n" + res.stdout + res.stderr)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}) building {SOURCE}:\n"
-                    f"{res.stderr}")
-            os.replace(tmp, lib_path)
-        finally:
-            fcntl.flock(lock, fcntl.LOCK_UN)
-    return lib_path
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.msda_fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                                 + [ctypes.c_void_p])
-        lib.msda_fwd.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+# value, shape table, loc, aw, out; dtype, B, S, Lq, M, D, L, P; stream
+_ARGTYPES = {"msda_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+             + [ctypes.c_void_p]}
 
 
 def _shape_table(spatial_shapes: Sequence[Tuple[int, int]],
@@ -148,7 +91,7 @@ def ms_deform_attn_cuda(value: torch.Tensor,
     if d not in (4, 8, 16) and (d < 32 or d % 32):
         raise ValueError(f"head dim {d} not supported (4, 8, 16 or a "
                          "multiple of 32)")
-    lib = _load()
+    lib = _build.load(NAME, _ARGTYPES)
     table = _shape_table(spatial_shapes, value.device)
     out = torch.empty((b, lq, m * d), dtype=value.dtype, device=value.device)
     stream = torch.cuda.current_stream(value.device).cuda_stream

@@ -168,8 +168,31 @@ def test_use_dab_default_is_shared():
 
 
 @pytest.mark.parametrize("override", [
-    {"ENCODER_TYPE": "windowed"}, {"ENCODER_TYPE": "hybrid"},
     {"ENCODER_TYPE": "conv"}, {"EXTRA_TRACK_ATTN": True}])
 def test_unported_options_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(dict(TINY_CFG, **override))
+
+
+@pytest.mark.parametrize("override", [
+    {"ENCODER_TYPE": "windowed", "WINDOW_SIZE": 4},
+    {"ENCODER_TYPE": "hybrid", "WINDOW_SIZE": 4}])
+def test_windowed_and_hybrid_load_jax_weights(override):
+    """The windowed and hybrid models build and take a JAX-initialised
+    tree with ``strict=True``, every parameter landing where it belongs."""
+    cfg = dict(TINY_CFG, **override)
+    params, uparams, frozen = _jax_trees(cfg, seed=2)
+    port = build_model(cfg)
+    sd = state_dict_from_jax(params, uparams, frozen)
+    port.load_state_dict(sd, strict=True)
+    enc = params["transformer"]["encoder"]["layer_1"]
+    attn = enc["fine"]["win_attn"] if "fine" in enc else enc["win_attn"]
+    base = "transformer.encoder.layers.1." + ("fine." if "fine" in enc
+                                              else "")
+    np.testing.assert_array_equal(
+        port.state_dict()[base + "win_attn.in_proj_weight"][:HD].numpy(),
+        attn["q_proj"]["kernel"].T)
+    lepe = enc["fine"]["lepe_dwconv"] if "fine" in enc else enc["lepe_dwconv"]
+    np.testing.assert_array_equal(
+        port.state_dict()[base + "lepe_dwconv.weight"].numpy(),
+        lepe["kernel"].transpose(3, 2, 0, 1))

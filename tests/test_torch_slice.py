@@ -162,8 +162,10 @@ def test_txt_lines_match_jax(runs, frame):
 
 
 def test_submitter_writes_frame_step_results(runs, tmp_path):
+    """Line for line the frame step's results (the eval cache off: the
+    frame steps of ``runs`` compute their position maps per frame)."""
     sub = Submitter("DanceTrack", _frames(), "seq", str(tmp_path),
-                    runs["model"], CFG)
+                    runs["model"], dict(CFG, EVAL_CACHE=False), "cpu")
     sub.run()
     with open(tmp_path / "tracker" / "seq.txt") as f:
         got = f.read().splitlines(keepends=True)
@@ -228,13 +230,15 @@ def test_submit_entry_reads_a_sequence(tmp_path):
 
 PORT_MODULES = [
     "memotr_tpu_torch." + m for m in (
-        "config", "ops.msda", "ops.msda_cuda", "utils.misc",
+        "config", "ops._build", "ops.msda", "ops.msda_cuda",
+        "ops.window_attn", "ops.window_attn_cuda", "utils.misc",
         "structures.track_state", "models.resnet",
         "models.position_embedding", "models.layers", "models.msda_module",
-        "models.encoder", "models.decoder", "models.transformer",
-        "models.memotr", "models.query_updater", "models.runtime_tracker",
-        "models.frame_step", "engine.submit", "data.seq_dataset",
-        "checkpoint.convert")]
+        "models.encoder", "models.windowed_encoder", "models.hybrid_encoder",
+        "models.decoder", "models.transformer", "models.memotr",
+        "models.eval_cache", "models.query_updater",
+        "models.runtime_tracker", "models.frame_step", "engine.submit",
+        "data.seq_dataset", "checkpoint.convert")]
 
 
 def test_port_imports_no_jax():
@@ -245,6 +249,17 @@ def test_port_imports_no_jax():
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+def test_entry_points_without_a_card_raise_unless_asked_for_cpu(tmp_path):
+    """The Submitter and submit() default to CUDA and never fall back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    model = _port_model()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Submitter("DanceTrack", _frames(), "seq", str(tmp_path), model, CFG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        submit({"SUBMIT_DIR": str(tmp_path)})
 
 
 def _run_chip_smoke(cwd):
