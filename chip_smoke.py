@@ -10,12 +10,17 @@ nonzero exit and no result line:
    parallel), with ptxas's registers and spills per kernel;
 3. K1 (MSDA forward) vs plain PyTorch on the card at the MSDA shapes of the
    paths (encoder B=1, decoder B=1 and B=2, one awkward shape), float32 and
-   bfloat16, with out-of-bounds taps; median times over 20 runs;
+   bfloat16, with out-of-bounds taps; per call, over 20 calls, the device
+   time (the call's CUDA kernels, torch.profiler) and the event-timed call
+   (which includes the wrapper's host work), and the achieved rate of
+   gathered corner bytes;
 4. K2 (fused window attention) vs plain PyTorch at the main path's shapes
    (window level 0, grid levels 0 and 3, with the 800x1536 canvas's padding
    and its fully padded windows) and an awkward one, float32 and bfloat16;
-   median times over 20 runs of the kernel, the plain version and the
-   library composition (matmuls + scaled_dot_product_attention);
+   device and event times of the kernel, the plain version and the library
+   composition (matmuls + scaled_dot_product_attention), the kernel's
+   achieved TFLOP/s, its time by CUDA kernel, and a check that bf16 took
+   the fused tensor-core route;
 5. deformable slice: configs/train_dancetrack.yaml (seeded random weights)
    streams synthetic 800x1536 uint8 frames through the port's Submitter in
    bfloat16; finite outputs, live tracks, launch counts, MOT txt;
@@ -108,6 +113,9 @@ def say(phase: str, msg: str) -> None:
 
 
 def median_ms(fn, runs: int = 20) -> float:
+    """Median time of one call between two CUDA events: the call as its
+    caller sees it, the wrapper's host work (checks, allocation, the ctypes
+    call) on an idle stream included."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -121,6 +129,17 @@ def median_ms(fn, runs: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def timed(fn, runs: int = 20) -> tuple:
+    """(event ms, device ms, device_ms_by_kernel's parts) per call.  The
+    device time is the sum of the self device time of every CUDA kernel
+    the call runs (torch.profiler), over ``runs`` calls: the kernels alone,
+    without the host's share."""
+    event_ms = median_ms(fn, runs)             # warms up as well
+    parts = device_ms_by_kernel(fn, runs)
+    assert parts, "the profiler recorded no CUDA kernel"
+    return event_ms, sum(ms for ms, _ in parts.values()), parts
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -177,6 +196,13 @@ def msda_bound(value, loc, aw):
     return bound(nbytes, flops, torch.float32)
 
 
+def msda_gathered_bytes(value, loc):
+    """Bytes of the corner rows one call reads: 4 corners of D channels for
+    every (batch, query, head, level, point), out-of-bounds ones included."""
+    b, lq, m, nl, p = loc.shape[:5]
+    return b * lq * m * nl * p * 4 * value.shape[3] * value.element_size()
+
+
 def phase_k1(device):
     """K1 vs plain version on the card; returns (max f32 error, times)."""
     from memotr_tpu_torch.ops import msda_cuda
@@ -210,13 +236,20 @@ def phase_k1(device):
             if name in ("encoder", "decoder_b1", "decoder_b2"):
                 v, loc, aw = msda_inputs(1, b, shapes, m, d, p, lq,
                                          torch.bfloat16, device)
-                k_ms = median_ms(lambda: msda_cuda.ms_deform_attn_cuda(
+                k_ms, k_dev, _ = timed(lambda: msda_cuda.ms_deform_attn_cuda(
                     v, shapes, loc, aw))
-                p_ms = median_ms(lambda: plain(v, shapes, loc, aw))
+                p_ms, p_dev, _ = timed(lambda: plain(v, shapes, loc, aw))
                 b_ms, b_by = msda_bound(v, loc, aw)
-                times[name] = (k_ms, p_ms, b_ms, b_by)
-                say("3 K1", f"{name} bf16 median of 20: kernel {k_ms:.4f} "
-                    f"ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+                gathered = msda_gathered_bytes(v, loc)
+                times[name] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
+                                   plain_device_ms=p_dev, bound_ms=b_ms,
+                                   bound_by=b_by)
+                say("3 K1", f"{name} bf16, per call over 20: kernel device "
+                    f"{k_dev:.4f} ms (event-timed call {k_ms:.4f} ms), plain "
+                    f"device {p_dev:.4f} ms (call {p_ms:.4f} ms), bound "
+                    f"{b_ms:.4f} ms ({b_by}); corner rows gathered "
+                    f"{gathered / 1e6:.1f} MB, achieved "
+                    f"{gathered / k_dev / 1e6:.1f} GB/s (device time)")
     return worst, times
 
 
@@ -296,20 +329,27 @@ def library_window_attention(x, pos, mask, in_w, in_b, out_w, out_b, bias,
     return y.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
 
 
+def k2_flops(args, geo):
+    """Multiply-adds x 2 of the four projections and the two attention
+    products over every (padded) token."""
+    b, h, w, c = args[0].shape
+    tokens, l = b * h * w, geo[1] * geo[2]
+    return 8 * c * c * tokens + 4 * l * c * tokens
+
+
 def k2_bound(args, geo):
     x, bias = args[0], args[7]
-    heads, wh, ww = geo
-    b, h, w, c = x.shape
-    tokens, l = b * h * w, wh * ww
+    c = x.shape[3]
+    tokens = x.numel() // c
     nbytes = (3 * tokens * c * x.element_size() + tokens
               + (4 * c * c + 4 * c) * 4
               + (bias.numel() * 4 if bias is not None else 0))
-    flops = 8 * c * c * tokens + 4 * l * c * tokens
-    return bound(nbytes, flops, x.dtype)
+    return bound(nbytes, k2_flops(args, geo), x.dtype)
 
 
 def phase_k2(device):
     """K2 vs plain version on the card; returns (max f32 error, times)."""
+    from memotr_tpu_torch.ops import window_attn_cuda
     from memotr_tpu_torch.ops.window_attn import window_attention_torch
     from memotr_tpu_torch.ops.window_attn_cuda import window_attention_cuda
     worst = 0.0
@@ -341,26 +381,36 @@ def phase_k2(device):
             if name == "awkward":
                 continue
             args, geo = k2_case(name, torch.bfloat16, device, seed=1)
+            fused_before = window_attn_cuda.routes["fused"]
             lib = library_window_attention(*args, *geo)
             ref = window_attention_torch(args[0].float(), args[1].float(),
                                          *args[2:], *geo)
             lib_err = (lib.float() - ref).abs().max().item()
             assert lib_err <= K2_BF16_ATOL, ("library", name, lib_err)
-            k_ms = median_ms(lambda: window_attention_cuda(*args, *geo))
-            p_ms = median_ms(lambda: window_attention_torch(*args, *geo))
-            l_ms = median_ms(lambda: library_window_attention(*args, *geo))
-            b_ms, b_by = k2_bound(args, geo)
-            times[name] = (k_ms, p_ms, l_ms, b_ms, b_by)
-            say("4 K2", f"{name} bf16 median of 20: kernel {k_ms:.4f} ms, "
-                f"plain {p_ms:.4f} ms, library composition {l_ms:.4f} ms "
-                f"(its max_abs_err {lib_err:.3e}), bound {b_ms:.4f} ms "
-                f"({b_by})")
-            parts = device_ms_by_kernel(
+            k_ms, k_dev, parts = timed(
                 lambda: window_attention_cuda(*args, *geo))
+            assert window_attn_cuda.routes["fused"] > fused_before, \
+                f"{name}: bf16 at C=256, head dim 32 did not take the fused route"
+            p_ms, p_dev, _ = timed(lambda: window_attention_torch(*args, *geo))
+            l_ms, l_dev, _ = timed(
+                lambda: library_window_attention(*args, *geo))
+            b_ms, b_by = k2_bound(args, geo)
+            flops = k2_flops(args, geo)
+            times[name] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
+                               plain_device_ms=p_dev, library_ms=l_ms,
+                               library_device_ms=l_dev, bound_ms=b_ms,
+                               bound_by=b_by)
+            say("4 K2", f"{name} bf16, per call over 20: kernel device "
+                f"{k_dev:.4f} ms (event-timed call {k_ms:.4f} ms), plain "
+                f"device {p_dev:.4f} ms (call {p_ms:.4f}), library "
+                f"composition device {l_dev:.4f} ms (call {l_ms:.4f}; its "
+                f"max_abs_err {lib_err:.3e}), bound {b_ms:.4f} ms ({b_by}); "
+                f"achieved {flops / k_dev / 1e9:.1f} TFLOP/s (device time), "
+                f"{b_ms / k_dev:.1%} of the bound")
             say("4 K2", f"{name} bf16 device time by CUDA kernel (profiler, "
-                f"10 calls): " + (", ".join(
-                    f"{kernel_name(k)} {v:.4f} ms" for k, v in parts.items())
-                    or "no kernel events recorded"))
+                f"20 calls): " + ", ".join(
+                    f"{kernel_name(k)} {ms:.4f} ms ({n} launches)"
+                    for k, (ms, n) in parts.items()))
     return worst, times
 
 
@@ -371,19 +421,30 @@ def kernel_name(key: str) -> str:
 
 
 def device_ms_by_kernel(fn, calls: int = 10) -> dict:
-    """Mean device time per call of each CUDA kernel that ``fn`` runs."""
+    """{kernel: (mean device ms per call, launches recorded)} of every CUDA
+    kernel that ``calls`` calls of ``fn`` run.  The profiler now and then
+    drops a few device events (its activity buffer is not flushed): so a
+    kernel's time per call is its mean time per recorded launch times its
+    launches per call (recorded launches / calls, rounded), and a profiling
+    run that recorded no device event at all is run again, at most twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / calls
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        parts = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+                per_call = max(1, round(e.count / calls))
+                parts[e.key] = (e.self_device_time_total / 1e3 / e.count
+                                * per_call, e.count)
+        if parts:
+            return parts
+    return {}
 
 
 # ---------------------------------------------------------------- slices
@@ -711,20 +772,22 @@ def main() -> int:
     say("10 hybrid", f"done in {time.perf_counter() - t0:.1f} s")
     say("all", f"{time.perf_counter() - t_all:.1f} s")
 
-    k1_ms, k1_plain, k1_bound, k1_by = k1_times["encoder"]
-    k2_ms, k2_plain, k2_lib, k2_bound_ms, k2_by = k2_times["window_l0"]
+    k1, k2 = k1_times["encoder"], k2_times["window_l0"]
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": "msda_fwd", "route": "cuda", "source": K1_SRC,
          "replaces": K1_TPU, "launches": counts["msda_fwd"],
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
-         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
-         "shape": "encoder B=1 Lq=25512 bf16",
+         "max_abs_err": k1_err, "ms": k1["ms"], "device_ms": k1["device_ms"],
+         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": k1["bound_by"], "library_ms": None,
+         "library_device_ms": None, "shape": "encoder B=1 Lq=25512 bf16",
          "launches_hybrid": hybrid_counts["msda_fwd"]},
         {"name": "window_attn_fwd", "route": "cuda", "source": K2_SRC,
          "replaces": K2_TPU, "launches": counts["window_attn_fwd"],
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
-         "bound_ms": k2_bound_ms, "bound_by": k2_by, "library_ms": k2_lib,
+         "max_abs_err": k2_err, "ms": k2["ms"], "device_ms": k2["device_ms"],
+         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
+         "library_device_ms": k2["library_device_ms"],
          "library": "composition: matmuls + scaled_dot_product_attention",
          "shape": "window level 0 104x192 L=64 bf16",
          "launches_hybrid": hybrid_counts["window_attn_fwd"]}]}),

@@ -91,6 +91,10 @@ def ms_deform_attn_cuda(value: torch.Tensor,
     if d not in (4, 8, 16) and (d < 32 or d % 32):
         raise ValueError(f"head dim {d} not supported (4, 8, 16 or a "
                          "multiple of 32)")
+    for name, t in (("value", value), ("sampling_locations", loc),
+                    ("attention_weights", aw)):
+        if t.data_ptr() % 16:                 # 16-byte loads of their rows
+            raise ValueError(f"{name} must be 16-byte aligned")
     lib = _build.load(NAME, _ARGTYPES)
     table = _shape_table(spatial_shapes, value.device)
     out = torch.empty((b, lq, m * d), dtype=value.dtype, device=value.device)

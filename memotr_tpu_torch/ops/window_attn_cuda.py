@@ -8,7 +8,12 @@ is compiled with ``nvcc`` at first use and loaded with ``ctypes``
 (``ops/_build.py``).
 
 ``launches`` counts calls that launched the kernel (one per call: the
-three CUDA kernels of one call are one K2 launch), and nothing else.
+CUDA kernels of one call are one K2 launch), and nothing else.  ``routes``
+counts the same calls by route: ``"fused"`` (bfloat16 on the tensor cores:
+QKV projection + attention in one CUDA kernel, the output projection in a
+second; no Q/K/V in device memory) or ``"cuda_cores"`` (float32, and bf16
+shapes the fused route does not take: three CUDA kernels through a Q/K/V
+scratch).
 """
 from __future__ import annotations
 
@@ -22,11 +27,13 @@ from . import _build
 NAME = "window_attn_fwd"
 
 launches = 0
+routes = {"fused": 0, "cuda_cores": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # x, pos, mask, w_in, b_in, w_out, b_out, bias, qkv, o, out; dtype, B, Hp,
-# Wp, C, heads, wh, ww; stream
+# Wp, C, heads, wh, ww; stream.  window_attn_fused: dtype, C, heads, L, bias
 _ARGTYPES = {"window_attn_fwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
-             + [ctypes.c_void_p]}
+             + [ctypes.c_void_p],
+             "window_attn_fused": [ctypes.c_int] * 5}
 
 
 def window_attention_cuda(x: torch.Tensor, pos: torch.Tensor,
@@ -76,6 +83,8 @@ def window_attention_cuda(x: torch.Tensor, pos: torch.Tensor,
                          "windows")
     if c % n_heads:
         raise ValueError(f"C={c} is not a multiple of {n_heads} heads")
+    if b * h * w >= 2 ** 31:                  # the kernel's 32-bit addressing
+        raise ValueError(f"{b}x{h}x{w} tokens: at most 2^31 - 1")
     want = {"pos": (b, h, w, c), "mask": (b, h, w),
             "in_proj_weight": (3 * c, c), "in_proj_bias": (3 * c,),
             "out_weight": (c, c), "out_bias": (c,), "bias": (n_heads, l, l)}
@@ -84,15 +93,25 @@ def window_attention_cuda(x: torch.Tensor, pos: torch.Tensor,
             raise ValueError(f"{name} must be {want[name]}, got "
                              f"{tuple(t.shape)}")
     lib = _build.load(NAME, _ARGTYPES)
+    fused = bool(lib.window_attn_fused(_DTYPES[x.dtype], c, n_heads, l,
+                                       int(bias is not None)))
+    if fused:                                 # 16-byte loads of these rows
+        for name, t in (("x", x), ("pos", pos),
+                        ("in_proj_weight", in_proj_weight),
+                        ("out_weight", out_weight)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(x)
-    qkv = torch.empty((3,) + tuple(x.shape), dtype=x.dtype, device=x.device)
-    o = torch.empty_like(x)
+    o = torch.empty_like(x)                   # head outputs, window order
+    qkv = None if fused else torch.empty((3,) + tuple(x.shape),
+                                         dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.window_attn_fwd(
         x.data_ptr(), pos.data_ptr(), mask.data_ptr(),
         in_proj_weight.data_ptr(), in_proj_bias.data_ptr(),
         out_weight.data_ptr(), out_bias.data_ptr(),
-        bias.data_ptr() if bias is not None else None, qkv.data_ptr(),
+        bias.data_ptr() if bias is not None else None,
+        qkv.data_ptr() if qkv is not None else None,
         o.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], b, h, w, c, n_heads,
         window_h, window_w, stream)
     if rc != 0:
@@ -100,4 +119,5 @@ def window_attention_cuda(x: torch.Tensor, pos: torch.Tensor,
                            f"(window {window_h}x{window_w}, C={c}, "
                            f"{n_heads} heads)")
     launches += 1
+    routes["fused" if fused else "cuda_cores"] += 1
     return out

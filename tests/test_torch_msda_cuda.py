@@ -29,6 +29,16 @@ CASES = {
     "single_level_d8": dict(b=1, m=1, d=8, lq=4, p=2, shapes=((7, 7),)),
     "d4": dict(b=1, m=2, d=4, lq=9, p=2, shapes=((9, 12), (5, 6))),
     "d64": dict(b=1, m=2, d=64, lq=33, p=2, shapes=((5, 5), (3, 3))),
+    # the decoder's size at B=2 (the launcher splits each (b, q, m)'s
+    # samples over lanes at this size), with out-of-bounds taps
+    "decoder_b2_main": dict(b=2, m=8, d=32, lq=364, p=4,
+                            shapes=((100, 192), (50, 96), (25, 48), (13, 24))),
+    # Lq * M not a multiple of a block's (b, q, m) groups
+    "ragged_lq": dict(b=1, m=8, d=32, lq=1001, p=4,
+                      shapes=((25, 48), (13, 24), (7, 12), (4, 6))),
+    # L * P odd: no four-sample loads, split samples of 3 levels x 3 points
+    "odd_lp_d16": dict(b=1, m=2, d=16, lq=7, p=3,
+                       shapes=((11, 17), (6, 9), (3, 5))),
 }
 
 

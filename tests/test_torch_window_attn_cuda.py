@@ -32,7 +32,24 @@ CASES = {
     "awkward_c32": (2, 16, 24, 32, 4, 4, 4, False, True),
     # C not a multiple of 32, head dim 8: the CUDA-core kernels in bf16 too
     "awkward_c24": (1, 8, 12, 24, 3, 4, 4, True, True),
+    # the main path's widths (C=256, 8 heads, head dim 32): the fused
+    # tensor-core route in bf16
+    "main_window_l64": (1, 16, 24, 256, 8, 8, 8, True, True),
+    "main_grid_l312": (1, 26, 48, 256, 8, 13, 24, True, True),
+    "main_grid_l6": (1, 16, 24, 256, 8, 2, 3, True, False),
+    "main_window_b2": (2, 16, 24, 256, 8, 8, 8, False, True),
+    # the fused route's other head dims: 16 (groups over 64 keys) and 64
+    "fused_dh16_l84": (1, 14, 24, 64, 4, 7, 12, True, True),
+    "fused_dh64_l64": (1, 16, 24, 128, 2, 8, 8, True, True),
 }
+
+
+def _route(dtype, c, heads):
+    """The route a call takes: the fused tensor-core kernels in bf16 at C a
+    multiple of 64 and head dim 16, 32 or 64, else the CUDA-core kernels."""
+    fused = (dtype == torch.bfloat16 and c % 64 == 0
+             and c // heads in (16, 32, 64))
+    return "fused" if fused else "cuda_cores"
 
 
 @pytest.fixture
@@ -69,15 +86,32 @@ def _inputs(device, dtype, b, h, w, c, heads, wh, ww, with_bias, dead,
 def test_kernel_matches_plain(cuda, case, dtype):
     args, geo = _inputs(cuda, dtype, *CASES[case])
     before = window_attn_cuda.launches
+    route = _route(dtype, CASES[case][3], CASES[case][4])
+    routes_before = dict(window_attn_cuda.routes)
     with torch.inference_mode():
         out = window_attn_cuda.window_attention_cuda(*args, *geo)
         ref = window_attention_torch(args[0].float(), args[1].float(),
                                      *args[2:], *geo)
     torch.cuda.synchronize()
     assert window_attn_cuda.launches == before + 1
+    assert window_attn_cuda.routes[route] == routes_before[route] + 1, route
     assert out.dtype == dtype and torch.isfinite(out).all()
     atol = 1e-4 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(out.float(), ref, atol=atol, rtol=1e-4)
+
+
+def test_fused_route_allocates_no_qkv_scratch(cuda):
+    """bf16 at the main path's widths: the call allocates its output and
+    one head-output map, and no (3, B, H, W, C) Q/K/V scratch."""
+    args, geo = _inputs(cuda, torch.bfloat16, *CASES["main_grid_l312"])
+    with torch.inference_mode():
+        window_attn_cuda.window_attention_cuda(*args, *geo)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = window_attn_cuda.window_attention_cuda(*args, *geo)
+        torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= 2 * out.nbytes + 4096
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
