@@ -6,8 +6,8 @@ Phases, each printed on its own line; any failure ends the run with a
 nonzero exit and no result line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: both kernels from memotr_tpu_torch/csrc/ (one nvcc each, in
-   parallel), with ptxas's registers and spills per kernel;
+2. build: the three kernels from memotr_tpu_torch/csrc/ (one nvcc each,
+   in parallel), with ptxas's registers and spills per kernel;
 3. K1 (MSDA forward) vs plain PyTorch on the card at the MSDA shapes of the
    paths (encoder B=1, decoder B=1 and B=2, one awkward shape), float32 and
    bfloat16, with out-of-bounds taps; per call, over 20 calls, the device
@@ -26,7 +26,7 @@ nonzero exit and no result line:
    bfloat16; finite outputs, live tracks, launch counts, MOT txt;
 6. one float32 frame of the deformable model through K1 and through the
    plain MSDA (TF32 off), compared;
-7. windowed slice (this slice's main path): the fields of
+7. windowed slice: the fields of
    configs/train_dancetrack_windowed.yaml, 8 frames in bfloat16 through the
    Submitter with the eval cache on; 12 K2 and 6 K1 launches per frame;
 8. one float32 frame of the windowed model through both kernels and
@@ -36,6 +36,21 @@ nonzero exit and no result line:
    family;
 10. hybrid: configs/train_dancetrack.yaml with ENCODER_TYPE hybrid, 2
     frames; 6 K2 and 12 K1 launches per frame;
+11. K1 backward (csrc/msda_bwd.cu) vs autograd of the plain version at the
+    training canvas's MSDA shapes (encoder B=1 Lq=28,560; decoder B=1 and
+    B=2, Lq=364, out-of-bounds taps), float32 and bfloat16; device time of
+    the kernel and of the plain backward, and the bound;
+12. deformable training (this slice's main path): the
+    configs/train_dancetrack.yaml model in bfloat16 trains through the
+    port's Trainer on synthetic 896x1536 clips (864x1536 valid) of 20
+    moving boxes, one entering and one leaving: 3 steps at T=2 and 1 at
+    T=5; finite losses and gradient norm, every trainable parameter
+    reached, the frozen stem and layer1 untouched, 12 T forward and 12 T
+    backward K1 launches a step; ms per step, peak device memory, host
+    matching copies; then one more T=2 step under torch.profiler (device
+    time by kernel family, host matching time);
+13. one float32 training step (T=1, TF32 off) through the kernels and
+    through the plain MSDA: total loss and gradient norms compared;
 then a JSON line of kernel results, the card's name and power limit and,
 last, the device line ``{"ok": true, "device": {...}}``.
 
@@ -58,6 +73,8 @@ import torch.nn.functional as F
 ENC_SHAPES = ((100, 192), (50, 96), (25, 48), (13, 24))   # 800x1536 / 8..64
 K1_SRC = "memotr_tpu_torch/csrc/msda_fwd.cu"
 K1_TPU = "memotr_tpu/ops/msda_pallas.py:65"
+K1B_SRC = "memotr_tpu_torch/csrc/msda_bwd.cu"
+K1B_TPU = "memotr_tpu/ops/msda_pallas.py:237"
 K2_SRC = "memotr_tpu_torch/csrc/window_attn_fwd.cu"
 K2_TPU = "memotr_tpu/ops/window_attn.py:112"
 F32_TOL = dict(atol=1e-5, rtol=1e-4)
@@ -78,6 +95,18 @@ K2_BF16_ATOL = 5e-2
 FRAME_ATOL = {"pred_logits": 1e-3, "pred_boxes": 1e-3}
 WINDOWED_FRAME_ATOL = {"pred_logits": 3e-2, "pred_boxes": 3e-2}
 K2_VS_F64 = 4.0
+# K1 backward against autograd of the plain version in float32 on the same
+# (bf16-rounded) inputs: every gradient within 1e-5 of its largest element
+# (float32 sums of up to 4 D corner products in another order; grad_value's
+# float32 atomics add in a run-dependent order), grad_value in bf16 also
+# rtol 8e-3 (one rounding of its float32 sum to bf16)
+K1B_REL = 1e-5
+K1B_BF16_VALUE_RTOL = 8e-3
+# one float32 train step (T=1), kernels vs plain MSDA: float32 sums in
+# another order in 12 MSDA calls, forward and backward, carried through the
+# model: the loss to 1e-4 relative, the gradient norms to 1e-3
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_NORM_RTOL = 1e-3
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s, bf16
 # tensor-core FLOP/s, float32 CUDA-core FLOP/s
 HBM_BPS = 3.35e12
@@ -101,6 +130,24 @@ WINDOWED_CONFIG = dict(
     WINDOWED_LEPE=True, WINDOWED_BOTTOMUP=True, WINDOWED_RELPOS=True,
     WINDOWED_PRENORM=False, EVAL_CACHE=True)
 HYBRID_CONFIG = dict(CONFIG, ENCODER_TYPE="hybrid")
+# configs/train_dancetrack.yaml, the fields the training slice reads
+TRAIN_CONFIG = dict(
+    CONFIG, MAX_GTS=128, AUX_LOSS=True, AUX_LOSS_WEIGHT=[1.0] * 5,
+    DROPOUT=0.0, USE_CHECKPOINT=False, LR=2.0e-4, LR_BACKBONE=2.0e-5,
+    LR_POINTS=1.0e-5, WEIGHT_DECAY=5.0e-4, CLIP_MAX_NORM=0.1,
+    LR_SCHEDULER="MultiStep", LR_DROP_RATE=0.1, LR_DROP_MILESTONES=[12],
+    EPOCHS=20, ONLY_TRAIN_QUERY_UPDATER_AFTER=20, TP_DROP_RATE=0.0,
+    FP_INSERT_RATE=0.0, NO_GRAD_FRAMES=None, ACCUMULATION_STEPS=1,
+    MATCH_COST_CLASS=2, MATCH_COST_BBOX=5, MATCH_COST_GIOU=2,
+    LOSS_WEIGHT_FOCAL=2, LOSS_WEIGHT_L1=5, LOSS_WEIGHT_GIOU=2)
+TRAIN_STEPS = (2, 2, 2, 5)   # SAMPLE_LENGTHS[0], then the last stage's
+# the largest frame MOTR_SCALES gives a 1920x1080 video at max_size 1536
+# (864x1536), on its 128-bucketed canvas
+TRAIN_VALID = (864, 1536)
+TRAIN_CANVAS = (896, 1536)
+TRAIN_ENC_SHAPES = ((112, 192), (56, 96), (28, 48), (14, 24))
+IMAGENET_MEAN = np.asarray((0.485, 0.456, 0.406), np.float32)
+IMAGENET_STD = np.asarray((0.229, 0.224, 0.225), np.float32)
 N_FRAMES = 8
 N_HYBRID_FRAMES = 2
 CANVAS = (800, 1536)
@@ -153,9 +200,9 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 def phase_build():
     from memotr_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    paths = _build.build("msda_fwd", "window_attn_fwd")
-    say("2 build", f"msda_fwd and window_attn_fwd (nvcc, sm_90a, in "
-        f"parallel) in {time.perf_counter() - t0:.1f} s")
+    paths = _build.build("msda_fwd", "msda_bwd", "window_attn_fwd")
+    say("2 build", f"msda_fwd, msda_bwd and window_attn_fwd (nvcc, sm_90a, "
+        f"in parallel) in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         entry = None
         for line in (path.parent / "build.log").read_text().splitlines():
@@ -499,12 +546,14 @@ def random_weights_(model, seed: int = 7):
 def reset_counts():
     from memotr_tpu_torch.ops import msda_cuda, window_attn_cuda
     msda_cuda.launches = 0
+    msda_cuda.bwd_launches = 0
     window_attn_cuda.launches = 0
 
 
 def read_counts():
     from memotr_tpu_torch.ops import msda_cuda, window_attn_cuda
     return {"msda_fwd": msda_cuda.launches,
+            "msda_bwd": msda_cuda.bwd_launches,
             "window_attn_fwd": window_attn_cuda.launches}
 
 
@@ -647,10 +696,14 @@ def kernel_family(name: str) -> str:
         return "K2 window_attn_fwd"
     if "msda_fwd" in n:
         return "K1 msda_fwd"
+    if "msda_bwd" in n:
+        return "K1 msda_bwd"
+    # cuDNN's implicit-GEMM convolutions carry GEMM-like names too
+    if any(k in n for k in ("conv", "cudnn", "implicit", "fprop", "dgrad",
+                            "wgrad")):
+        return "convolution"
     if any(k in n for k in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")):
         return "GEMM"
-    if any(k in n for k in ("conv", "cudnn", "implicit")):
-        return "convolution"
     if "norm" in n:
         return "normalization"
     return "elementwise, copies, reductions"
@@ -716,6 +769,291 @@ def phase_profile(model, config, device, n_frames: int = 3):
     assert fam.get("K2 window_attn_fwd", 0) > 0, "no K2 time in the trace"
 
 
+# ------------------------------------------------------------ K1 backward
+def plain_msda_grads(v, shapes, loc, aw, g):
+    """Autograd of the plain version: (grad_value, grad_loc, grad_aw)."""
+    from memotr_tpu_torch.ops.msda import ms_deform_attn_torch as plain
+    v, loc, aw = (t.detach().clone().requires_grad_() for t in (v, loc, aw))
+    return torch.autograd.grad(plain(v, shapes, loc, aw), (v, loc, aw), g)
+
+
+def msda_bwd_bound(value, loc, aw):
+    """Bytes: value, loc, aw and grad_out read once, the three gradients
+    written once (grad_value in the value dtype).  Operations, per sample
+    and channel in float32: the sample again (8), grad_aw (2), grad_loc
+    (2 x 7) and the four corners' scaled adds (8)."""
+    b, _, m, d = value.shape
+    lq, nl, p = loc.shape[1], loc.shape[3], loc.shape[4]
+    es = value.element_size()
+    nbytes = (2 * value.numel() * es + 2 * (loc.numel() + aw.numel()) * 4
+              + b * lq * m * d * es)
+    return bound(nbytes, b * lq * m * nl * p * d * 32, torch.float32)
+
+
+def phase_k1_bwd(device):
+    """K1 backward vs the plain version's autograd on the card; returns
+    (max f32 error, times at the encoder shape)."""
+    from memotr_tpu_torch.ops import msda_cuda
+    from memotr_tpu_torch.ops.msda import ms_deform_attn_torch as plain
+    lq_enc = sum(h * w for h, w in TRAIN_ENC_SHAPES)
+    cases = [("encoder", 1, lq_enc), ("decoder_b1", 1, 364),
+             ("decoder_b2", 2, 364)]
+    worst, times = 0.0, {}
+    gen = torch.Generator(device).manual_seed(0)
+    for name, b, lq in cases:
+        shapes = TRAIN_ENC_SHAPES
+        for dtype in (torch.float32, torch.bfloat16):
+            v, loc, aw = msda_inputs(0, b, shapes, 8, 32, 4, lq, dtype,
+                                     device)
+            g = torch.randn((b, lq, 256), generator=gen,
+                            device=device).to(dtype)
+            before = msda_cuda.bwd_launches
+            got = msda_cuda.msda_backward(v, shapes, loc, aw, g)
+            assert msda_cuda.bwd_launches == before + 1
+            want = plain_msda_grads(v.float(), shapes, loc, aw, g.float())
+            torch.cuda.synchronize()
+            errs = []
+            for gname, x, y in zip(("value", "loc", "aw"), got, want):
+                assert torch.isfinite(x).all(), (name, dtype, gname)
+                diff = (x.float() - y).abs()
+                rtol = K1B_BF16_VALUE_RTOL if (
+                    gname == "value" and dtype == torch.bfloat16) else 0.0
+                lim = K1B_REL * y.abs().max().item() + 1e-7 + rtol * y.abs()
+                assert bool((diff <= lim).all()), \
+                    (name, dtype, gname, diff.max().item())
+                errs.append(diff.max().item())
+            if dtype == torch.float32:
+                worst = max(worst, *errs)
+            say("11 K1 bwd", f"{name} B={b} Lq={lq} {str(dtype)[6:]}: "
+                f"max_abs_err grad_value {errs[0]:.3e}, grad_loc "
+                f"{errs[1]:.3e}, grad_aw {errs[2]:.3e} (each within "
+                f"{K1B_REL} of its largest element"
+                + (f", grad_value also rtol {K1B_BF16_VALUE_RTOL}"
+                   if dtype == torch.bfloat16 else "")
+                + "; vs plain f32 autograd on the same inputs) ok")
+        v, loc, aw = msda_inputs(1, b, shapes, 8, 32, 4, lq, torch.bfloat16,
+                                 device)
+        g = torch.randn((b, lq, 256), generator=gen,
+                        device=device).to(torch.bfloat16)
+        k_ms, k_dev, parts = timed(
+            lambda: msda_cuda.msda_backward(v, shapes, loc, aw, g))
+        vr, lr, ar = (t.detach().clone().requires_grad_()
+                      for t in (v, loc, aw))
+        out = plain(vr, shapes, lr, ar)
+        p_ms, p_dev, _ = timed(lambda: torch.autograd.grad(
+            out, (vr, lr, ar), g, retain_graph=True))
+        del out
+        b_ms, b_by = msda_bwd_bound(v, loc, aw)
+        kern = sum(ms for k, (ms, _) in parts.items() if "msda_bwd" in k)
+        times[name] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
+                           plain_device_ms=p_dev, bound_ms=b_ms,
+                           bound_by=b_by, kernel_device_ms=kern)
+        scattered = b * lq * 8 * 16 * 4 * 32
+        say("11 K1 bwd", f"{name} bf16, per call over 20: device "
+            f"{k_dev:.4f} ms (msda_bwd_kernel {kern:.4f}; the zeroed float32 "
+            f"scratch and the cast to bf16 the rest; event-timed call "
+            f"{k_ms:.4f} ms), plain autograd backward device {p_dev:.4f} ms "
+            f"(call {p_ms:.4f}), bound {b_ms:.4f} ms ({b_by}); at most "
+            f"{scattered / 1e6:.1f} M float32 atomic adds, "
+            f"{scattered / kern / 1e6:.2f} G/s of kernel time")
+        say("11 K1 bwd", f"{name} bf16 device time by CUDA kernel: " + ", ".join(
+            f"{kernel_name(k)} {ms:.4f} ms" for k, (ms, _) in parts.items()))
+    return worst, times
+
+
+# ---------------------------------------------------------------- training
+def synthetic_clip(t: int, seed: int):
+    """A collate_clips item: T normalized float32 frames of TRAIN_VALID
+    size with 20 textured boxes moving over a textured background, ids
+    kept across frames; id 0 leaves after the first half of the clip and
+    id 20 enters in its second half."""
+    rng = np.random.default_rng(seed)
+    h, w = TRAIN_VALID
+    n = 21
+    bg = rng.integers(40, 140, (h, w, 3), np.uint8)
+    size = rng.uniform([0.04, 0.14], [0.13, 0.42], (n, 2)) * [w, h]
+    pos = rng.uniform(0, 1, (n, 2)) * ([w, h] - size)
+    vel = rng.uniform(-12, 12, (n, 2))
+    tex = [rng.integers(100, 255, (int(sh), int(sw), 3), np.uint8)
+           for sw, sh in size]
+    imgs, infos = [], []
+    for f in range(t):
+        img = bg.copy()
+        ids = [i for i in range(n) if (i != 0 or f < (t + 1) // 2)
+               and (i != n - 1 or f >= t // 2)]
+        boxes = []
+        for i in ids:
+            x, y = pos[i].astype(int)
+            th, tw = tex[i].shape[:2]
+            img[y:y + th, x:x + tw] = tex[i]
+            boxes.append([(x + tw / 2) / w, (y + th / 2) / h, tw / w, th / h])
+        boxes = np.asarray(boxes, np.float32)
+        imgs.append(((img / np.float32(255) - IMAGENET_MEAN) / IMAGENET_STD)
+                    .astype(np.float32))
+        infos.append({"boxes": boxes, "ids": np.asarray(ids),
+                      "labels": np.zeros(len(ids), np.int64),
+                      "areas": boxes[:, 2] * boxes[:, 3] * w * h})
+        pos = np.clip(pos + vel, 0, [w, h] - size)
+        vel[(pos <= 0) | (pos >= [w, h] - size)] *= -1
+    return {"imgs": imgs, "infos": infos}
+
+
+def train_batch(t: int, seed: int):
+    from memotr_tpu_torch.data.loader import collate_clips
+    batch = collate_clips([synthetic_clip(t, seed)],
+                          TRAIN_CONFIG["MAX_GTS"])
+    assert batch["images"].shape[2:4] == TRAIN_CANVAS, batch["images"].shape
+    return batch
+
+
+def phase_train(device):
+    """Trains the bf16 model through the Trainer (TRAIN_STEPS); returns
+    (model, counts of the run, per-step msda_bwd launches)."""
+    from memotr_tpu_torch.engine.trainer import Trainer
+    from memotr_tpu_torch.models.memotr import build_model
+    from memotr_tpu_torch.ops import hungarian
+    model = random_weights_(build_model(TRAIN_CONFIG))
+    trainer = Trainer(model, TRAIN_CONFIG, device, seed=0)
+    enc_dec = TRAIN_CONFIG["NUM_ENC_LAYERS"] + TRAIN_CONFIG["NUM_DEC_LAYERS"]
+    batches = [train_batch(t, seed=10 + i) for i, t in enumerate(TRAIN_STEPS)]
+    totals = {"msda_fwd": 0, "msda_bwd": 0, "window_attn_fwd": 0}
+    per_step, peaks, prev_t = [], {}, None
+    for i, (t, batch) in enumerate(zip(TRAIN_STEPS, batches)):
+        if t != prev_t:
+            torch.cuda.reset_peak_memory_stats(device)
+            prev_t = t
+        copies = hungarian.host_copies
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        logs = trainer.step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+        copies = hungarian.host_copies - copies
+        for k, v in counts.items():
+            totals[k] += v
+        per_step.append(counts["msda_bwd"])
+        peaks[t] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        for k, v in logs.items():
+            assert np.isfinite(float(v)), (i, k, v)
+        assert logs["params_without_grad"] == 0, logs["params_without_grad"]
+        for name, p in model.named_parameters():
+            assert (p.grad is None) == (not p.requires_grad), name
+        for kernel in ("msda_fwd", "msda_bwd"):
+            assert counts[kernel] == enc_dec * t, \
+                f"{kernel} launches {counts[kernel]}, expected {enc_dec} x {t}"
+        assert copies == t, copies
+        say("12 train", f"step {i + 1} T={t}: {ms:.1f} ms (host wall, "
+            f"synchronized; upload included), total_loss "
+            f"{float(logs['total_loss']):.5f}, grad_norm "
+            f"{float(logs['grad_norm']):.4f}, n_gts {int(logs['n_gts'])}; "
+            f"msda_fwd {counts['msda_fwd']} and msda_bwd "
+            f"{counts['msda_bwd']} launches = {enc_dec} x {t} ok; host "
+            f"matching copies {copies} (one per frame)")
+    n_frozen = sum(not p.requires_grad for p in model.parameters())
+    say("12 train", f"every trainable parameter got a gradient in every "
+        f"step, the {n_frozen} frozen ones (stem, layer1) none; peak device "
+        f"memory (max_memory_allocated) T=2 {peaks[2]:.2f} GiB, T=5 "
+        f"{peaks[5]:.2f} GiB")
+    profile_train_step(trainer, device)
+    return model, totals, per_step
+
+
+def profile_train_step(trainer, device):
+    """One more T=2 step, timed with the host matching timed apart, then
+    the same under torch.profiler: device busy time by kernel family."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from memotr_tpu_torch.models import criterion
+    batch = train_batch(2, seed=30)
+    orig = criterion.hungarian_cost_padded
+    spent = []
+
+    def timed_match(cost, rows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(cost, rows)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    criterion.hungarian_cost_padded = timed_match
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        criterion.hungarian_cost_padded = orig
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.step(batch)
+        torch.cuda.synchronize()
+    fam = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            k = kernel_family(e.key)
+            fam[k] = fam.get(k, 0.0) + e.self_device_time_total / 1e3
+    busy = sum(fam.values())
+    say("12 train", f"profile, one T=2 step: host wall {wall:.1f} ms "
+        f"(of which host matching {1e3 * sum(spent):.1f} ms over "
+        f"{len(spent)} copies: device-to-host copy, scipy, upload), device "
+        f"busy {busy:.1f} ms (profiler, the next step), idle share "
+        f"{1 - busy / wall:.3f}")
+    for k, v in sorted(fam.items(), key=lambda kv: -kv[1]):
+        say("12 train", f"  {k}: {v:.2f} ms ({v / busy:.1%} of busy)")
+    assert fam.get("K1 msda_bwd", 0) > 0, "no K1 backward time in the trace"
+
+
+def phase_train_f32(model_bf16, device):
+    """One float32 T=1 step's loss and gradient norms through the kernels
+    and through the plain MSDA (the phase-6 swap)."""
+    import copy
+
+    from memotr_tpu_torch.engine.trainer import Trainer, param_groups
+    from memotr_tpu_torch.models import msda_module
+    from memotr_tpu_torch.models.memotr import build_model
+    from memotr_tpu_torch.ops.msda import ms_deform_attn_torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dict(TRAIN_CONFIG, DTYPE="float32")
+    model = build_model(cfg)
+    model.load_state_dict(model_bf16.state_dict())
+    batch = train_batch(1, seed=40)
+    kernel = msda_module.ms_deform_attn
+    res = {}
+    for route in ("kernels", "plain"):
+        m = copy.deepcopy(model)
+        tr = Trainer(m, cfg, device, seed=0)
+        msda_module.ms_deform_attn = kernel if route == "kernels" \
+            else ms_deform_attn_torch
+        try:
+            logs = tr.grad_step(tr.batch_to_device(batch), tr.generator)
+        finally:
+            msda_module.ms_deform_attn = kernel
+        norms = {}
+        for g, ps in param_groups(m).items():
+            sq = [(p.grad.double() ** 2).sum() for p in ps
+                  if p.grad is not None]
+            norms[g] = float(torch.stack(sq).sum().sqrt()) if sq else 0.0
+        norms["global"] = float(np.sqrt(sum(v ** 2 for v in norms.values())))
+        res[route] = (float(logs["total_loss"]), norms)
+        del tr, m
+    (lk, nk), (lp, npl) = res["kernels"], res["plain"]
+    assert np.isfinite(lk) and abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp), \
+        (lk, lp)
+    say("13 train f32", f"TF32 off; T=1 total_loss kernels {lk:.7f} plain "
+        f"{lp:.7f} (rel {abs(lk - lp) / abs(lp):.2e} <= {TRAIN_LOSS_RTOL}) ok")
+    for g in nk:
+        rel = abs(nk[g] - npl[g]) / max(abs(npl[g]), 1e-30)
+        assert rel <= TRAIN_NORM_RTOL or nk[g] == npl[g], (g, nk[g], npl[g])
+        say("13 train f32", f"grad norm {g}: kernels {nk[g]:.6e} plain "
+            f"{npl[g]:.6e} (rel {rel:.2e} <= {TRAIN_NORM_RTOL}) ok")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke run needs "
@@ -770,9 +1108,21 @@ def main() -> int:
          + HYBRID_CONFIG["NUM_DEC_LAYERS"]}, device, live=None)
     del model
     say("10 hybrid", f"done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    k1b_err, k1b_times = phase_k1_bwd(device)
+    say("11 K1 bwd", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    model, train_counts, bwd_per_step = phase_train(device)
+    say("12 train", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_train_f32(model, device)
+    del model
+    say("13 train f32", f"done in {time.perf_counter() - t0:.1f} s")
     say("all", f"{time.perf_counter() - t_all:.1f} s")
 
     k1, k2 = k1_times["encoder"], k2_times["window_l0"]
+    k1b = k1b_times["encoder"]
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": "msda_fwd", "route": "cuda", "source": K1_SRC,
@@ -790,7 +1140,18 @@ def main() -> int:
          "library_device_ms": k2["library_device_ms"],
          "library": "composition: matmuls + scaled_dot_product_attention",
          "shape": "window level 0 104x192 L=64 bf16",
-         "launches_hybrid": hybrid_counts["window_attn_fwd"]}]}),
+         "launches_hybrid": hybrid_counts["window_attn_fwd"]},
+        {"name": "msda_bwd", "route": "cuda", "source": K1B_SRC,
+         "replaces": K1B_TPU, "launches": train_counts["msda_bwd"],
+         "launches_per_step": bwd_per_step, "max_abs_err": k1b_err,
+         "ms": k1b["ms"], "device_ms": k1b["device_ms"],
+         "kernel_device_ms": k1b["kernel_device_ms"],
+         "plain_ms": k1b["plain_ms"],
+         "plain_device_ms": k1b["plain_device_ms"],
+         "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"],
+         "library_ms": None, "library_device_ms": None,
+         "shape": "encoder B=1 Lq=28560 bf16 (896x1536)",
+         "launches_train_fwd": train_counts["msda_fwd"]}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""One streaming frame: forward -> lifecycle -> memory update (counterpart of
-``eval_frame_step`` in ``memotr_tpu/models/frame_step.py``; the training
-step is a later slice of the port)."""
+"""Per-frame steps over ``TrackState`` (counterpart of
+``memotr_tpu/models/frame_step.py``): the training frame (forward ->
+losses -> track selection -> memory update) and the streaming frame
+(forward -> lifecycle -> memory update)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -9,7 +10,9 @@ import torch
 
 from ..structures.track_state import TrackState
 from ..utils.misc import logits_to_scores
+from .criterion import ClipCriterion, FrameGT
 from .runtime_tracker import runtime_tracker_step
+from .track_selection import select_active_tracks_train
 
 
 def model_forward(model, images: torch.Tensor, mask: torch.Tensor,
@@ -24,6 +27,26 @@ def apply_query_updater(updater, state: TrackState) -> TrackState:
                   state.output_embed, state.last_output, state.long_memory,
                   state.mask)
     return state.replace(**upd)
+
+
+def train_frame_step(model, criterion: ClipCriterion, images: torch.Tensor,
+                     mask: torch.Tensor, gt: FrameGT, state: TrackState,
+                     generator: torch.Generator, update_threshold: float,
+                     tp_drop_ratio: float = 0.0, fp_insert_ratio: float = 0.0,
+                     no_augment: bool = False, postprocess: bool = True
+                     ) -> Tuple[Dict, torch.Tensor, TrackState]:
+    """One training frame -> (loss dict, n_gts (B,), next TrackState).
+    ``postprocess=False`` (a clip's last frame) skips the selection and the
+    query updater, whose results no later frame would read."""
+    out = model_forward(model, images, mask, state)
+    losses, n_gts, state, new_cand, um_cand = criterion.process_frame(
+        out, state, gt)
+    if postprocess:
+        state = select_active_tracks_train(
+            state, new_cand, um_cand, generator, update_threshold,
+            tp_drop_ratio, fp_insert_ratio, no_augment)
+        state = apply_query_updater(model.query_updater, state)
+    return losses, n_gts, state
 
 
 def eval_frame_step(model, images: torch.Tensor, mask: torch.Tensor,

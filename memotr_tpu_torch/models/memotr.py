@@ -209,6 +209,12 @@ def build_model(config: dict) -> MeMOTR:
     if cfg_get(config, "EXTRA_TRACK_ATTN"):
         raise NotImplementedError("EXTRA_TRACK_ATTN is not ported to PyTorch "
                                   "(ROADMAP.md, queue 1)")
+    if cfg_get(config, "DROPOUT") > 0:
+        raise NotImplementedError("DROPOUT > 0 is not ported to PyTorch "
+                                  "(ROADMAP.md, queue 1)")
+    if cfg_get(config, "USE_CHECKPOINT"):
+        raise NotImplementedError("USE_CHECKPOINT is not ported to PyTorch "
+                                  "(ROADMAP.md, queue 1)")
     encoder_type = cfg_get(config, "ENCODER_TYPE")
     if (cfg_get(config, "WINDOWED_PRENORM")
             and encoder_type in ("windowed", "hybrid")

@@ -4,7 +4,10 @@
 torchvision-style ResNet-50 v1.5 (stride on each bottleneck's 3x3 conv)
 written in the repo, with torchvision's parameter names, returning the
 layer2/3/4 maps at strides 8/16/32.  Convolutions run NCHW in the compute
-dtype; parameters and the frozen statistics stay float32.
+dtype; parameters and the frozen statistics stay float32.  The stem and
+``layer1`` never train: their parameters are made with
+``requires_grad=False``, as the reference MeMOTR's backbone does (the JAX
+trainer's "frozen" group).
 """
 from __future__ import annotations
 
@@ -93,6 +96,8 @@ class ResNet50(nn.Module):
             layer += [Bottleneck(inplanes, planes, dtype=dtype)
                       for _ in range(1, blocks)]
             setattr(self, f"layer{i}", nn.Sequential(*layer))
+        for p in (*self.conv1.parameters(), *self.layer1.parameters()):
+            p.requires_grad_(False)
 
     def forward(self, x: torch.Tensor):
         x = F.relu(self.bn1(self.conv1(x)))

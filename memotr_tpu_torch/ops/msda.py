@@ -14,7 +14,9 @@ Layouts (as in the JAX package):
   returns             (B, Lq, M*D) in the value dtype
 
 ``ms_deform_attn`` dispatches by device: CPU tensors take the plain
-version, CUDA tensors the hand-written kernel (``ops/msda_cuda.py``).
+version (whose gradient is autograd's), CUDA tensors the hand-written
+kernels (``ops/msda_cuda.py``: the forward kernel, and under autograd the
+backward kernel for the gradient).
 """
 from __future__ import annotations
 
@@ -78,8 +80,8 @@ def ms_deform_attn_torch(value: torch.Tensor, spatial_shapes: Shapes,
 def ms_deform_attn(value: torch.Tensor, spatial_shapes: Shapes,
                    sampling_locations: torch.Tensor,
                    attention_weights: torch.Tensor) -> torch.Tensor:
-    """CPU tensors -> plain version; CUDA tensors -> the CUDA kernel (which
-    raises on what it does not take; there is no silent fallback)."""
+    """CPU tensors -> plain version; CUDA tensors -> the CUDA kernels (which
+    raise on what they do not take; there is no silent fallback)."""
     if value.is_cuda:
         from .msda_cuda import ms_deform_attn_cuda
         return ms_deform_attn_cuda(value, spatial_shapes, sampling_locations,

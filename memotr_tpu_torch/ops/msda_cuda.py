@@ -1,13 +1,22 @@
-"""CUDA MSDA forward kernel: ctypes binding and wrapper.
+"""CUDA MSDA kernels, forward and backward: ctypes bindings, wrappers and
+the autograd Function that joins them.
 
-Replaces the TPU kernel ``ms_deform_attn_pallas``
-(``memotr_tpu/ops/msda_pallas.py:220``; its ``pallas_call`` is at :187).
-The kernel source is ``memotr_tpu_torch/csrc/msda_fwd.cu``; its header says
-what bounds it on an H100 and how its design answers that.  It is compiled
-with ``nvcc`` at first use and loaded with ``ctypes`` (``ops/_build.py``).
+The forward replaces the TPU kernel ``ms_deform_attn_pallas``
+(``memotr_tpu/ops/msda_pallas.py:220``; its ``pallas_call`` is at :187),
+the backward that kernel's custom VJP (``_bwd``, msda_pallas.py:237: the
+VJP of ``ms_deform_attn_xla``).  Their sources are
+``memotr_tpu_torch/csrc/msda_fwd.cu`` and ``csrc/msda_bwd.cu``; each
+header says what the kernel computes and how.  They are compiled with
+``nvcc`` at first use and loaded with ``ctypes`` (``ops/_build.py``).
 
-``launches`` counts kernel launches (and nothing else), so a run can show
-that its main path went through the kernel.
+``ms_deform_attn_cuda`` launches the forward alone when no gradient is
+asked for (``torch.inference_mode()``, ``torch.no_grad()`` or inputs that
+do not require grad), and otherwise goes through ``MSDeformAttnFunction``,
+whose backward launches the backward kernel.
+
+``launches`` / ``bwd_launches`` count launches of the forward / backward
+kernel (and nothing else), so a run can show that its main path went
+through the kernels.
 """
 from __future__ import annotations
 
@@ -15,12 +24,15 @@ import ctypes
 from typing import Dict, Sequence, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
 NAME = "msda_fwd"
+BWD_NAME = "msda_bwd"
 
 launches = 0
+bwd_launches = 0
 _shape_tables: Dict[Tuple, torch.Tensor] = {}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -28,6 +40,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # value, shape table, loc, aw, out; dtype, B, S, Lq, M, D, L, P; stream
 _ARGTYPES = {"msda_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
              + [ctypes.c_void_p]}
+# value, shape table, loc, aw, grad_out, grad_value (f32), grad_loc,
+# grad_aw; dtype, B, S, Lq, M, D, L, P; stream
+_BWD_ARGTYPES = {"msda_bwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                 + [ctypes.c_void_p]}
 
 
 def _shape_table(spatial_shapes: Sequence[Tuple[int, int]],
@@ -45,22 +61,10 @@ def _shape_table(spatial_shapes: Sequence[Tuple[int, int]],
     return tab
 
 
-def ms_deform_attn_cuda(value: torch.Tensor,
-                        spatial_shapes: Sequence[Tuple[int, int]],
-                        sampling_locations: torch.Tensor,
-                        attention_weights: torch.Tensor) -> torch.Tensor:
-    """Launch the forward kernel; same contract as ``ms_deform_attn_torch``.
-
-    Raises on what the kernel does not take (device, dtype, shape,
-    contiguity) and when a gradient is asked for: the backward kernel comes
-    with the training slice."""
-    global launches
-    loc, aw = sampling_locations, attention_weights
-    if torch.is_grad_enabled() and (value.requires_grad or loc.requires_grad
-                                    or aw.requires_grad):
-        raise NotImplementedError(
-            "MSDA CUDA kernel is forward-only; its backward kernel comes with "
-            "the training slice (run inference under torch.inference_mode())")
+def _check(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+           loc: torch.Tensor, aw: torch.Tensor) -> None:
+    """Raise on what the kernels do not take (device, dtype, shape,
+    contiguity, alignment)."""
     for name, t in (("value", value), ("sampling_locations", loc),
                     ("attention_weights", aw)):
         if not t.is_cuda or t.device != value.device:
@@ -95,6 +99,16 @@ def ms_deform_attn_cuda(value: torch.Tensor,
                     ("attention_weights", aw)):
         if t.data_ptr() % 16:                 # 16-byte loads of their rows
             raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def msda_forward(value: torch.Tensor,
+                 spatial_shapes: Sequence[Tuple[int, int]],
+                 loc: torch.Tensor, aw: torch.Tensor) -> torch.Tensor:
+    """Launch the forward kernel on checked inputs -> (B, Lq, M*D)."""
+    global launches
+    _check(value, spatial_shapes, loc, aw)
+    b, s, m, d = value.shape
+    lq, nl, p = loc.shape[1], loc.shape[3], loc.shape[4]
     lib = _build.load(NAME, _ARGTYPES)
     table = _shape_table(spatial_shapes, value.device)
     out = torch.empty((b, lq, m * d), dtype=value.dtype, device=value.device)
@@ -106,3 +120,79 @@ def ms_deform_attn_cuda(value: torch.Tensor,
         raise RuntimeError(f"msda_fwd launch failed: CUDA error {rc}")
     launches += 1
     return out
+
+
+def msda_backward(value: torch.Tensor,
+                  spatial_shapes: Sequence[Tuple[int, int]],
+                  loc: torch.Tensor, aw: torch.Tensor,
+                  grad_out: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel -> (grad_value in the value dtype,
+    grad_loc, grad_aw float32).  grad_value is summed by float32 atomics
+    into a zeroed float32 buffer, then cast."""
+    global bwd_launches
+    _check(value, spatial_shapes, loc, aw)
+    b, s, m, d = value.shape
+    lq, nl, p = loc.shape[1], loc.shape[3], loc.shape[4]
+    if tuple(grad_out.shape) != (b, lq, m * d) or \
+            grad_out.device != value.device:
+        raise ValueError(f"grad_out {tuple(grad_out.shape)} on "
+                         f"{grad_out.device}, expected {(b, lq, m * d)} on "
+                         f"{value.device}")
+    g = grad_out.to(value.dtype).contiguous()
+    if g.data_ptr() % 16:
+        g = g.clone()
+    lib = _build.load(BWD_NAME, _BWD_ARGTYPES)
+    table = _shape_table(spatial_shapes, value.device)
+    grad_value = torch.zeros((b, s, m, d), dtype=torch.float32,
+                             device=value.device)
+    grad_loc = torch.empty_like(loc)
+    grad_aw = torch.empty_like(aw)
+    stream = torch.cuda.current_stream(value.device).cuda_stream
+    rc = lib.msda_bwd(value.data_ptr(), table.data_ptr(), loc.data_ptr(),
+                      aw.data_ptr(), g.data_ptr(), grad_value.data_ptr(),
+                      grad_loc.data_ptr(), grad_aw.data_ptr(),
+                      _DTYPES[value.dtype], b, s, lq, m, d, nl, p, stream)
+    if rc != 0:
+        raise RuntimeError(f"msda_bwd launch failed: CUDA error {rc}")
+    bwd_launches += 1
+    return grad_value.to(value.dtype), grad_loc, grad_aw
+
+
+class MSDeformAttnFunction(torch.autograd.Function):
+    """Forward kernel forward, backward kernel backward."""
+
+    @staticmethod
+    def forward(ctx, value, loc, aw, spatial_shapes):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, loc, aw)
+        return msda_forward(value, spatial_shapes, loc, aw)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        value, loc, aw = ctx.saved_tensors
+        gv, gl, ga = msda_backward(value, ctx.spatial_shapes, loc, aw,
+                                   grad_out)
+        need = ctx.needs_input_grad
+        return (gv if need[0] else None, gl if need[1] else None,
+                ga if need[2] else None, None)
+
+
+def ms_deform_attn_cuda(value: torch.Tensor,
+                        spatial_shapes: Sequence[Tuple[int, int]],
+                        sampling_locations: torch.Tensor,
+                        attention_weights: torch.Tensor) -> torch.Tensor:
+    """Same contract as ``ms_deform_attn_torch``, through the kernels.
+
+    With a gradient asked for, the call goes through
+    ``MSDeformAttnFunction`` (the backward kernel then runs in
+    ``backward()``); otherwise it launches the forward kernel alone and
+    saves nothing.  Raises on what the kernels do not take (device, dtype,
+    shape, contiguity) and when a launch fails."""
+    loc, aw = sampling_locations, attention_weights
+    if torch.is_grad_enabled() and (value.requires_grad or loc.requires_grad
+                                    or aw.requires_grad):
+        return MSDeformAttnFunction.apply(value, loc, aw,
+                                          tuple(map(tuple, spatial_shapes)))
+    return msda_forward(value, spatial_shapes, loc, aw)

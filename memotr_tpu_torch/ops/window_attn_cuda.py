@@ -46,7 +46,8 @@ def window_attention_cuda(x: torch.Tensor, pos: torch.Tensor,
 
     Raises on what the kernel does not take (device, dtype, shape,
     contiguity), when a gradient is asked for (the backward kernel comes
-    with the training slice) and when a launch fails."""
+    with the windowed-training slice, ROADMAP.md queue 1, slice 3) and when
+    a launch fails."""
     global launches
     params = (in_proj_weight, in_proj_bias, out_weight, out_bias)
     if torch.is_grad_enabled() and any(
@@ -54,7 +55,8 @@ def window_attention_cuda(x: torch.Tensor, pos: torch.Tensor,
             for t in (x, pos, bias) + params):
         raise NotImplementedError(
             "window-attention CUDA kernel is forward-only; its backward "
-            "kernel comes with the training slice (run inference under "
+            "kernel comes with the windowed-training slice (ROADMAP.md "
+            "queue 1, slice 3; run inference under "
             "torch.inference_mode())")
     named = [("x", x), ("pos", pos), ("mask", mask),
              ("in_proj_weight", in_proj_weight),

@@ -168,7 +168,8 @@ def test_use_dab_default_is_shared():
 
 
 @pytest.mark.parametrize("override", [
-    {"ENCODER_TYPE": "conv"}, {"EXTRA_TRACK_ATTN": True}])
+    {"ENCODER_TYPE": "conv"}, {"EXTRA_TRACK_ATTN": True}, {"DROPOUT": 0.1},
+    {"USE_CHECKPOINT": True}])
 def test_unported_options_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(dict(TINY_CFG, **override))

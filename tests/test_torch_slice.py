@@ -238,7 +238,9 @@ PORT_MODULES = [
         "models.decoder", "models.transformer", "models.memotr",
         "models.eval_cache", "models.query_updater",
         "models.runtime_tracker", "models.frame_step", "engine.submit",
-        "data.seq_dataset", "checkpoint.convert")]
+        "data.seq_dataset", "checkpoint.convert", "utils.box_ops",
+        "structures.padded_frame", "data.loader", "ops.hungarian",
+        "models.criterion", "models.track_selection", "engine.trainer")]
 
 
 def test_port_imports_no_jax():
