@@ -51,6 +51,27 @@ nonzero exit and no result line:
     time by kernel family, host matching time);
 13. one float32 training step (T=1, TF32 off) through the kernels and
     through the plain MSDA: total loss and gradient norms compared;
+14. K2 backward (csrc/window_attn_bwd.cu behind WindowAttnFunction) vs
+    autograd of the plain version at the training canvas's window level 0
+    (L=64) and every grid level (L=336, 84, 24, 6), the streaming canvas's
+    window level 0 (its fully padded windows) and grid level 0 (L=312), and
+    an awkward shape, float32 and bfloat16, every gradient compared; device
+    time (at the training canvas's window level 0 and grid levels 0 and 3)
+    of the kernel alone, of the whole backward call (kernel and its
+    matmuls), of the plain version's autograd and of the library
+    composition's autograd backward, and both bounds;
+15. windowed training (this slice's main path): the
+    configs/train_dancetrack_windowed.yaml model in bfloat16 through the
+    Trainer on the phase-12 clips, 3 steps at T=2 and 1 at T=5; finite
+    losses and gradient norm, every trainable parameter reached, the frozen
+    ones untouched, 12 T forward and 12 T backward K2 launches and 6 T of
+    each K1 a step; ms per step, peak memory; a profiled T=2 step with K2
+    backward as its own family, and the idle share;
+16. hybrid training: 2 steps at T=2, the same checks, 6 T K2 and 12 T K1
+    launches (forward and backward) a step;
+17. one float32 windowed training step (T=1, TF32 off) through the kernels
+    and through the plain K1 and K2: total loss and gradient norms
+    compared (the norms to 5e-3: WINDOWED_TRAIN_NORM_RTOL says why);
 then a JSON line of kernel results, the card's name and power limit and,
 last, the device line ``{"ok": true, "device": {...}}``.
 
@@ -77,6 +98,8 @@ K1B_SRC = "memotr_tpu_torch/csrc/msda_bwd.cu"
 K1B_TPU = "memotr_tpu/ops/msda_pallas.py:237"
 K2_SRC = "memotr_tpu_torch/csrc/window_attn_fwd.cu"
 K2_TPU = "memotr_tpu/ops/window_attn.py:112"
+K2B_SRC = "memotr_tpu_torch/csrc/window_attn_bwd.cu"
+K2B_TPU = "memotr_tpu/ops/window_attn.py:263"
 F32_TOL = dict(atol=1e-5, rtol=1e-4)
 BF16_ATOL = 2e-2
 # K2 in float32: the projections (256-term sums), logits and value mix in
@@ -107,6 +130,24 @@ K1B_BF16_VALUE_RTOL = 8e-3
 # model: the loss to 1e-4 relative, the gradient norms to 1e-3
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_NORM_RTOL = 1e-3
+# the same for the windowed model, kernels vs plain K1 and K2 (12 K2 and 6
+# K1 calls, forward and backward).  On the weights phase 15 leaves, three
+# exit-0 H100 runs read 2.1e-5, 5.7e-5 and 1.28e-3 as the largest relative
+# change of a group's norm; the last is a rounding-sized difference
+# flipping a ReLU or a bilinear tap at its kink (in that run a 1e-6 nudge
+# of the plain versions' outputs moved the `points` norm 1.78e-3).  5e-3 is
+# four times the largest reading; each K2 call is held tightly in phase 14.
+WINDOWED_TRAIN_NORM_RTOL = 5e-3
+# K2 backward against autograd of the plain version in float32 on the same
+# (bf16-rounded) inputs and cotangent, every gradient within a share of its
+# largest element.  Float32: sums over L keys, the map's tokens and C
+# channels in another order, the bias table's float32 atomics in a
+# run-dependent order.  bfloat16: the kernel path rounds Q, K, V, dO, the
+# projection gradients dQ/dK/dV and g_x/g_pos to bf16 (2^-9 relative each),
+# and dS = P (dP - rowsum(P dP)) cancels, so a rounding of dP shows larger
+# in dS.
+K2B_F32_REL = 1e-4
+K2B_BF16_REL = 3e-2
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s, bf16
 # tensor-core FLOP/s, float32 CUDA-core FLOP/s
 HBM_BPS = 3.35e12
@@ -140,7 +181,16 @@ TRAIN_CONFIG = dict(
     FP_INSERT_RATE=0.0, NO_GRAD_FRAMES=None, ACCUMULATION_STEPS=1,
     MATCH_COST_CLASS=2, MATCH_COST_BBOX=5, MATCH_COST_GIOU=2,
     LOSS_WEIGHT_FOCAL=2, LOSS_WEIGHT_L1=5, LOSS_WEIGHT_GIOU=2)
+# configs/train_dancetrack_windowed.yaml's training fields are those of
+# configs/train_dancetrack.yaml; the hybrid model is the latter's with
+# ENCODER_TYPE hybrid
+WINDOWED_TRAIN_CONFIG = dict(
+    TRAIN_CONFIG, NUM_ENC_LAYERS=3, ENCODER_TYPE="windowed", WINDOW_SIZE=8,
+    WINDOWED_LEPE=True, WINDOWED_BOTTOMUP=True, WINDOWED_RELPOS=True,
+    WINDOWED_PRENORM=False)
+HYBRID_TRAIN_CONFIG = dict(TRAIN_CONFIG, ENCODER_TYPE="hybrid")
 TRAIN_STEPS = (2, 2, 2, 5)   # SAMPLE_LENGTHS[0], then the last stage's
+HYBRID_TRAIN_STEPS = (2, 2)
 # the largest frame MOTR_SCALES gives a 1920x1080 video at max_size 1536
 # (864x1536), on its 128-bucketed canvas
 TRAIN_VALID = (864, 1536)
@@ -200,9 +250,10 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 def phase_build():
     from memotr_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    paths = _build.build("msda_fwd", "msda_bwd", "window_attn_fwd")
-    say("2 build", f"msda_fwd, msda_bwd and window_attn_fwd (nvcc, sm_90a, "
-        f"in parallel) in {time.perf_counter() - t0:.1f} s")
+    paths = _build.build("msda_fwd", "msda_bwd", "window_attn_fwd",
+                         "window_attn_bwd")
+    say("2 build", f"msda_fwd, msda_bwd, window_attn_fwd and window_attn_bwd "
+        f"(nvcc, sm_90a, in parallel) in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         entry = None
         for line in (path.parent / "build.log").read_text().splitlines():
@@ -301,20 +352,24 @@ def phase_k1(device):
 
 
 # ------------------------------------------------------------------- K2
-def canvas_mask(device) -> torch.Tensor:
-    """(1, 800, 1536) padding mask of the synthetic frames."""
-    mask = torch.ones((1,) + CANVAS, dtype=torch.bool, device=device)
-    mask[:, :RESIZED[0], :RESIZED[1]] = False
+def canvas_mask(device, canvas=CANVAS, valid=RESIZED) -> torch.Tensor:
+    """(1, H, W) padding mask of the synthetic frames: the streaming
+    800x1536 canvas (768x1536 valid), or the training canvas."""
+    mask = torch.ones((1,) + canvas, dtype=torch.bool, device=device)
+    mask[:, :valid[0], :valid[1]] = False
     return mask
 
 
-def k2_case(name, dtype, device, seed=0):
+def k2_case(name, dtype, device, seed=0, train=False):
     """(args, (heads, window_h, window_w)) of a window_attention call: the
-    main path's level maps (800x1536 canvas, C=256, 8 heads, window 8)
+    main path's level maps (C=256, 8 heads, window 8) of the 800x1536
+    streaming canvas, or with ``train`` of the 896x1536 training canvas,
     padded to window multiples with the canvas's mask, or an awkward one."""
     from memotr_tpu_torch.models.memotr import _downsample_mask
     from memotr_tpu_torch.ops.window_attn import grid_transpose
     rng = np.random.default_rng(seed)
+    shapes, canvas = ((TRAIN_ENC_SHAPES, (TRAIN_CANVAS, TRAIN_VALID)) if train
+                      else (ENC_SHAPES, (CANVAS, RESIZED)))
     if name == "awkward":
         b, heads, win = 2, 4, 4
         mask = torch.zeros((b, 16, 24), dtype=torch.bool, device=device)
@@ -323,9 +378,10 @@ def k2_case(name, dtype, device, seed=0):
         grid, with_bias = False, False
     else:
         b, heads, win = 1, 8, 8
-        lvl = {"window_l0": 0, "grid_l0": 0, "grid_l3": 3}[name]
-        h, w = ENC_SHAPES[lvl]
-        mask = _downsample_mask(canvas_mask(device), h, w)
+        lvl = {"window_l0": 0, "grid_l0": 0, "grid_l1": 1, "grid_l2": 2,
+               "grid_l3": 3}[name]
+        h, w = shapes[lvl]
+        mask = _downsample_mask(canvas_mask(device, *canvas), h, w)
         mask = F.pad(mask, (0, (-w) % win, 0, (-h) % win), value=True)
         grid, with_bias = name.startswith("grid"), True
     c = 32 if name == "awkward" else 256
@@ -548,13 +604,15 @@ def reset_counts():
     msda_cuda.launches = 0
     msda_cuda.bwd_launches = 0
     window_attn_cuda.launches = 0
+    window_attn_cuda.bwd_launches = 0
 
 
 def read_counts():
     from memotr_tpu_torch.ops import msda_cuda, window_attn_cuda
     return {"msda_fwd": msda_cuda.launches,
             "msda_bwd": msda_cuda.bwd_launches,
-            "window_attn_fwd": window_attn_cuda.launches}
+            "window_attn_fwd": window_attn_cuda.launches,
+            "window_attn_bwd": window_attn_cuda.bwd_launches}
 
 
 def phase_slice(tag, config, n_frames, per_frame, device, live="first"):
@@ -692,6 +750,8 @@ def phase_frame_f32(tag, config, model_bf16, device, frame_atol):
 
 def kernel_family(name: str) -> str:
     n = name.lower()
+    if "attn_bwd" in n:
+        return "K2 window_attn_bwd"
     if "proj_kernel" in n or "attn_kernel" in n:
         return "K2 window_attn_fwd"
     if "msda_fwd" in n:
@@ -861,6 +921,151 @@ def phase_k1_bwd(device):
     return worst, times
 
 
+# ------------------------------------------------------------ K2 backward
+K2B_NAMES = ("x", "pos", "in_proj_weight", "in_proj_bias", "out_weight",
+             "out_bias", "bias")
+
+
+def k2_leaves(args, dtype=None):
+    """The differentiable inputs of a K2 call (x, pos, the four projection
+    tensors, the bias table or None), detached copies that require grad
+    (x and pos cast to ``dtype`` where given)."""
+    out = []
+    for i, a in enumerate((args[0], args[1]) + tuple(args[3:8])):
+        if a is not None:
+            a = a.detach().clone()
+            if dtype is not None and i < 2:
+                a = a.to(dtype)
+            a.requires_grad_()
+        out.append(a)
+    return out
+
+
+def k2_grads(fn, leaves, mask, geo, g):
+    """The gradients of the leaves that exist, through one K2 call."""
+    x, pos, in_w, in_b, out_w, out_b, bias = leaves
+    out = fn(x, pos, mask, in_w, in_b, out_w, out_b, bias, *geo)
+    return torch.autograd.grad(out, [t for t in leaves if t is not None], g)
+
+
+def k2_bwd_bound(args, geo, whole: bool):
+    """The least time of K2's backward.  Kernel alone: Q, K, V and dO read,
+    dQ, dK, dV written (in the activation dtype), the mask, the bias table
+    read and its gradient written; the five attention products, 10 L C
+    flops a token.  Whole call: x, pos and the cotangent read, g_x and g_pos
+    written, the weights read and their gradients written; the attention
+    products and the VJP's projection products (16 C^2 flops a token)."""
+    x, bias = args[0], args[7]
+    c = x.shape[3]
+    n, l, es = x.numel() // c, geo[1] * geo[2], x.element_size()
+    table = 2 * bias.numel() * 4 if bias is not None else 0
+    flops = 10 * n * l * c
+    if whole:
+        nbytes = 5 * n * c * es + n + 2 * (4 * c * c + 4 * c) * 4 + table
+        flops += 16 * n * c * c
+    else:
+        nbytes = 7 * n * c * es + n + table
+    return bound(nbytes, flops, x.dtype)
+
+
+def phase_k2_bwd(device):
+    """K2 backward (through WindowAttnFunction) vs the plain version's
+    autograd on the card; returns (max f32 error, times at the training
+    canvas's shapes)."""
+    from memotr_tpu_torch.ops import window_attn_cuda as wac
+    from memotr_tpu_torch.ops.window_attn import window_attention_torch
+    # (name, training canvas, timed): every grid level of the training
+    # canvas (L = 336, 84, 24, 6) and its window level 0 (L = 64)
+    cases = [("window_l0", True, True), ("grid_l0", True, True),
+             ("grid_l1", True, False), ("grid_l2", True, False),
+             ("grid_l3", True, True), ("window_l0", False, False),
+             ("grid_l0", False, False), ("awkward", False, False)]
+    worst, times = 0.0, {}
+    gen = torch.Generator(device).manual_seed(0)
+    for name, train, timed_case in cases:
+        where = ("896x1536" if train else "800x1536") \
+            if name != "awkward" else "B=2 C=32 4 heads, a dead window"
+        for dtype in (torch.float32, torch.bfloat16):
+            args, geo = k2_case(name, dtype, device, seed=2, train=train)
+            g = torch.randn(args[0].shape, generator=gen,
+                            device=device).to(dtype)
+            leaves = k2_leaves(args)
+            f0, b0 = wac.launches, wac.bwd_launches
+            got = k2_grads(wac.window_attention_cuda, leaves, args[2], geo,
+                           g)
+            assert (wac.launches, wac.bwd_launches) == (f0 + 1, b0 + 1)
+            want = k2_grads(window_attention_torch,
+                            k2_leaves(args, torch.float32), args[2], geo,
+                            g.float())
+            torch.cuda.synchronize()
+            rel = K2B_F32_REL if dtype == torch.float32 else K2B_BF16_REL
+            names = [k for k, t in zip(K2B_NAMES, leaves) if t is not None]
+            errs = []
+            for gname, a, r, leaf in zip(names, got, want,
+                                         [t for t in leaves if t is not None]):
+                assert a.dtype == leaf.dtype and torch.isfinite(a).all(), \
+                    (name, dtype, gname)
+                diff = (a.float() - r).abs().max().item()
+                top = r.abs().max().item()
+                assert diff <= rel * top + 1e-7, \
+                    (name, dtype, gname, diff, top)
+                errs.append((gname, diff, diff / max(top, 1e-30)))
+                if dtype == torch.float32:
+                    worst = max(worst, diff)
+            say("14 K2 bwd", f"{name} {where} x {tuple(args[0].shape)} L="
+                f"{geo[1] * geo[2]} bias {args[7] is not None} "
+                f"{str(dtype)[6:]}: max_abs_err (share of the largest) "
+                + ", ".join(f"{k} {d:.2e} ({r:.1e})" for k, d, r in errs)
+                + f" (each within {rel} of its largest element; vs plain "
+                "f32 autograd on the same inputs) ok")
+            del got, want
+        if not timed_case:
+            continue
+        args, geo = k2_case(name, torch.bfloat16, device, seed=3, train=True)
+        g = torch.randn(args[0].shape, generator=gen,
+                        device=device).to(torch.bfloat16)
+        with torch.no_grad():
+            _, o = wac.window_attention_fwd(*args, *geo)
+        tc_before = wac.bwd_routes["tensor_cores"]
+        k_ms, k_dev, parts = timed(
+            lambda: wac.window_attention_bwd(g, *args, o, *geo))
+        assert wac.bwd_routes["tensor_cores"] > tc_before, \
+            f"{name}: bf16 at head dim 32 did not take the tensor-core route"
+        kern = sum(ms for k, (ms, _) in parts.items() if "attn_bwd" in k)
+        assert kern > 0, "no attn_bwd kernel in the profile"
+        leaves = k2_leaves(args)
+        live = [t for t in leaves if t is not None]
+        out = window_attention_torch(leaves[0], leaves[1], args[2],
+                                     *leaves[2:], *geo)
+        p_ms, p_dev, _ = timed(lambda: torch.autograd.grad(
+            out, live, g, retain_graph=True))
+        out = library_window_attention(leaves[0], leaves[1], args[2],
+                                       *leaves[2:], *geo)
+        l_ms, l_dev, _ = timed(lambda: torch.autograd.grad(
+            out, live, g, retain_graph=True))
+        del out
+        b_ms, b_by = k2_bwd_bound(args, geo, whole=True)
+        kb_ms, kb_by = k2_bwd_bound(args, geo, whole=False)
+        times[name] = dict(ms=k_ms, device_ms=k_dev, kernel_device_ms=kern,
+                           plain_ms=p_ms, plain_device_ms=p_dev,
+                           library_ms=l_ms, library_device_ms=l_dev,
+                           bound_ms=b_ms, bound_by=b_by,
+                           kernel_bound_ms=kb_ms, kernel_bound_by=kb_by)
+        say("14 K2 bwd", f"{name} 896x1536 bf16 (tensor-core route), per "
+            f"call over 20: whole backward device {k_dev:.4f} ms (kernel "
+            f"{kern:.4f}; "
+            f"event-timed call {k_ms:.4f}), plain autograd backward device "
+            f"{p_dev:.4f} ms (call {p_ms:.4f}), library composition's "
+            f"autograd backward device {l_dev:.4f} ms (call {l_ms:.4f}); "
+            f"bound whole {b_ms:.4f} ms ({b_by}), kernel {kb_ms:.4f} ms "
+            f"({kb_by}): kernel at {kb_ms / kern:.1%} of its bound")
+        say("14 K2 bwd", f"{name} bf16 device time by CUDA kernel: "
+            + ", ".join(f"{kernel_name(k)} {ms:.4f} ms ({n})"
+                        for k, (ms, n) in sorted(parts.items(),
+                                                 key=lambda kv: -kv[1][0])))
+    return worst, times
+
+
 # ---------------------------------------------------------------- training
 def synthetic_clip(t: int, seed: int):
     """A collate_clips item: T normalized float32 frames of TRAIN_VALID
@@ -906,19 +1111,25 @@ def train_batch(t: int, seed: int):
     return batch
 
 
-def phase_train(device):
-    """Trains the bf16 model through the Trainer (TRAIN_STEPS); returns
-    (model, counts of the run, per-step msda_bwd launches)."""
+def phase_train(device, tag="12 train", config=TRAIN_CONFIG,
+                steps=TRAIN_STEPS, per_frame=None):
+    """Trains the bf16 ``config`` model through the Trainer (``steps``:
+    the clip length of each step) and checks each kernel's launches per
+    frame (``per_frame``; default: the deformable model's); returns (the
+    trainer, counts of the run, each step's counts)."""
     from memotr_tpu_torch.engine.trainer import Trainer
     from memotr_tpu_torch.models.memotr import build_model
     from memotr_tpu_torch.ops import hungarian
-    model = random_weights_(build_model(TRAIN_CONFIG))
-    trainer = Trainer(model, TRAIN_CONFIG, device, seed=0)
-    enc_dec = TRAIN_CONFIG["NUM_ENC_LAYERS"] + TRAIN_CONFIG["NUM_DEC_LAYERS"]
-    batches = [train_batch(t, seed=10 + i) for i, t in enumerate(TRAIN_STEPS)]
-    totals = {"msda_fwd": 0, "msda_bwd": 0, "window_attn_fwd": 0}
+    if per_frame is None:
+        enc_dec = config["NUM_ENC_LAYERS"] + config["NUM_DEC_LAYERS"]
+        per_frame = {"msda_fwd": enc_dec, "msda_bwd": enc_dec,
+                     "window_attn_fwd": 0, "window_attn_bwd": 0}
+    model = random_weights_(build_model(config))
+    trainer = Trainer(model, config, device, seed=0)
+    batches = [train_batch(t, seed=10 + i) for i, t in enumerate(steps)]
+    totals = dict.fromkeys(per_frame, 0)
     per_step, peaks, prev_t = [], {}, None
-    for i, (t, batch) in enumerate(zip(TRAIN_STEPS, batches)):
+    for i, (t, batch) in enumerate(zip(steps, batches)):
         if t != prev_t:
             torch.cuda.reset_peak_memory_stats(device)
             prev_t = t
@@ -931,36 +1142,36 @@ def phase_train(device):
         ms = (time.perf_counter() - t0) * 1e3
         counts = read_counts()
         copies = hungarian.host_copies - copies
-        for k, v in counts.items():
-            totals[k] += v
-        per_step.append(counts["msda_bwd"])
+        for k in totals:
+            totals[k] += counts[k]
+        per_step.append(counts)
         peaks[t] = torch.cuda.max_memory_allocated(device) / 2 ** 30
         for k, v in logs.items():
             assert np.isfinite(float(v)), (i, k, v)
         assert logs["params_without_grad"] == 0, logs["params_without_grad"]
         for name, p in model.named_parameters():
             assert (p.grad is None) == (not p.requires_grad), name
-        for kernel in ("msda_fwd", "msda_bwd"):
-            assert counts[kernel] == enc_dec * t, \
-                f"{kernel} launches {counts[kernel]}, expected {enc_dec} x {t}"
+        for kernel, n in per_frame.items():
+            assert counts[kernel] == n * t, \
+                f"{kernel} launches {counts[kernel]}, expected {n} x {t}"
         assert copies == t, copies
-        say("12 train", f"step {i + 1} T={t}: {ms:.1f} ms (host wall, "
+        say(tag, f"step {i + 1} T={t}: {ms:.1f} ms (host wall, "
             f"synchronized; upload included), total_loss "
             f"{float(logs['total_loss']):.5f}, grad_norm "
             f"{float(logs['grad_norm']):.4f}, n_gts {int(logs['n_gts'])}; "
-            f"msda_fwd {counts['msda_fwd']} and msda_bwd "
-            f"{counts['msda_bwd']} launches = {enc_dec} x {t} ok; host "
-            f"matching copies {copies} (one per frame)")
+            + ", ".join(f"{k} {counts[k]} = {n} x {t}"
+                        for k, n in per_frame.items())
+            + f" launches ok; host matching copies {copies} (one per frame)")
     n_frozen = sum(not p.requires_grad for p in model.parameters())
-    say("12 train", f"every trainable parameter got a gradient in every "
-        f"step, the {n_frozen} frozen ones (stem, layer1) none; peak device "
-        f"memory (max_memory_allocated) T=2 {peaks[2]:.2f} GiB, T=5 "
-        f"{peaks[5]:.2f} GiB")
-    profile_train_step(trainer, device)
-    return model, totals, per_step
+    say(tag, f"every trainable parameter got a gradient in every step, the "
+        f"{n_frozen} frozen ones (stem, layer1) none; peak device memory "
+        f"(max_memory_allocated) " + ", ".join(
+            f"T={t} {gib:.2f} GiB" for t, gib in sorted(peaks.items())))
+    return trainer, totals, per_step
 
 
-def profile_train_step(trainer, device):
+def profile_train_step(trainer, device, tag="12 train",
+                       family="K1 msda_bwd"):
     """One more T=2 step, timed with the host matching timed apart, then
     the same under torch.profiler: device busy time by kernel family."""
     from torch.autograd import DeviceType
@@ -997,43 +1208,48 @@ def profile_train_step(trainer, device):
             k = kernel_family(e.key)
             fam[k] = fam.get(k, 0.0) + e.self_device_time_total / 1e3
     busy = sum(fam.values())
-    say("12 train", f"profile, one T=2 step: host wall {wall:.1f} ms "
+    say(tag, f"profile, one T=2 step: host wall {wall:.1f} ms "
         f"(of which host matching {1e3 * sum(spent):.1f} ms over "
         f"{len(spent)} copies: device-to-host copy, scipy, upload), device "
         f"busy {busy:.1f} ms (profiler, the next step), idle share "
         f"{1 - busy / wall:.3f}")
     for k, v in sorted(fam.items(), key=lambda kv: -kv[1]):
-        say("12 train", f"  {k}: {v:.2f} ms ({v / busy:.1%} of busy)")
-    assert fam.get("K1 msda_bwd", 0) > 0, "no K1 backward time in the trace"
+        say(tag, f"  {k}: {v:.2f} ms ({v / busy:.1%} of busy)")
+    assert fam.get(family, 0) > 0, f"no {family} time in the trace"
 
 
-def phase_train_f32(model_bf16, device):
+def phase_train_f32(model_bf16, device, tag="13 train f32",
+                    config=TRAIN_CONFIG, norm_rtol=TRAIN_NORM_RTOL):
     """One float32 T=1 step's loss and gradient norms through the kernels
-    and through the plain MSDA (the phase-6 swap)."""
+    and through the plain MSDA and window attention (the phase-6 / 8
+    swap), from ``model_bf16``'s weights."""
     import copy
 
     from memotr_tpu_torch.engine.trainer import Trainer, param_groups
-    from memotr_tpu_torch.models import msda_module
+    from memotr_tpu_torch.models import msda_module, windowed_encoder
     from memotr_tpu_torch.models.memotr import build_model
     from memotr_tpu_torch.ops.msda import ms_deform_attn_torch
+    from memotr_tpu_torch.ops.window_attn import window_attention_torch
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dict(TRAIN_CONFIG, DTYPE="float32")
+    cfg = dict(config, DTYPE="float32")
     model = build_model(cfg)
     model.load_state_dict(model_bf16.state_dict())
     batch = train_batch(1, seed=40)
-    kernel = msda_module.ms_deform_attn
+    kernels = (msda_module.ms_deform_attn, windowed_encoder.window_attention)
     res = {}
     for route in ("kernels", "plain"):
         m = copy.deepcopy(model)
         tr = Trainer(m, cfg, device, seed=0)
-        msda_module.ms_deform_attn = kernel if route == "kernels" \
-            else ms_deform_attn_torch
+        if route == "plain":
+            msda_module.ms_deform_attn = ms_deform_attn_torch
+            windowed_encoder.window_attention = window_attention_torch
         try:
             logs = tr.grad_step(tr.batch_to_device(batch), tr.generator)
         finally:
-            msda_module.ms_deform_attn = kernel
+            msda_module.ms_deform_attn, windowed_encoder.window_attention = \
+                kernels
         norms = {}
         for g, ps in param_groups(m).items():
             sq = [(p.grad.double() ** 2).sum() for p in ps
@@ -1045,13 +1261,13 @@ def phase_train_f32(model_bf16, device):
     (lk, nk), (lp, npl) = res["kernels"], res["plain"]
     assert np.isfinite(lk) and abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp), \
         (lk, lp)
-    say("13 train f32", f"TF32 off; T=1 total_loss kernels {lk:.7f} plain "
-        f"{lp:.7f} (rel {abs(lk - lp) / abs(lp):.2e} <= {TRAIN_LOSS_RTOL}) ok")
+    say(tag, f"TF32 off; T=1 total_loss kernels {lk:.7f} plain {lp:.7f} "
+        f"(rel {abs(lk - lp) / abs(lp):.2e} <= {TRAIN_LOSS_RTOL}) ok")
     for g in nk:
         rel = abs(nk[g] - npl[g]) / max(abs(npl[g]), 1e-30)
-        assert rel <= TRAIN_NORM_RTOL or nk[g] == npl[g], (g, nk[g], npl[g])
-        say("13 train f32", f"grad norm {g}: kernels {nk[g]:.6e} plain "
-            f"{npl[g]:.6e} (rel {rel:.2e} <= {TRAIN_NORM_RTOL}) ok")
+        assert rel <= norm_rtol or nk[g] == npl[g], (g, nk[g], npl[g])
+        say(tag, f"grad norm {g}: kernels {nk[g]:.6e} plain {npl[g]:.6e} "
+            f"(rel {rel:.2e} <= {norm_rtol}) ok")
 
 
 def main() -> int:
@@ -1113,16 +1329,47 @@ def main() -> int:
     k1b_err, k1b_times = phase_k1_bwd(device)
     say("11 K1 bwd", f"done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    model, train_counts, bwd_per_step = phase_train(device)
+    trainer, train_counts, train_steps = phase_train(device)
+    profile_train_step(trainer, device)
     say("12 train", f"done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_train_f32(model, device)
-    del model
+    phase_train_f32(trainer.model, device)
+    del trainer
     say("13 train f32", f"done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    k2b_err, k2b_times = phase_k2_bwd(device)
+    say("14 K2 bwd", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    win_layers = WINDOWED_TRAIN_CONFIG["NUM_ENC_LAYERS"] * n_levels
+    win_dec = WINDOWED_TRAIN_CONFIG["NUM_DEC_LAYERS"]
+    trainer, win_counts, win_steps = phase_train(
+        device, "15 windowed train", WINDOWED_TRAIN_CONFIG, TRAIN_STEPS,
+        {"window_attn_fwd": win_layers, "window_attn_bwd": win_layers,
+         "msda_fwd": win_dec, "msda_bwd": win_dec})
+    profile_train_step(trainer, device, "15 windowed train",
+                       "K2 window_attn_bwd")
+    windowed_model = trainer.model
+    del trainer
+    say("15 windowed train", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    hyb_layers = HYBRID_TRAIN_CONFIG["NUM_ENC_LAYERS"]
+    hyb_msda = hyb_layers + HYBRID_TRAIN_CONFIG["NUM_DEC_LAYERS"]
+    trainer, _, hyb_steps = phase_train(
+        device, "16 hybrid train", HYBRID_TRAIN_CONFIG, HYBRID_TRAIN_STEPS,
+        {"window_attn_fwd": hyb_layers, "window_attn_bwd": hyb_layers,
+         "msda_fwd": hyb_msda, "msda_bwd": hyb_msda})
+    del trainer
+    say("16 hybrid train", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_train_f32(windowed_model, device, "17 windowed train f32",
+                    WINDOWED_TRAIN_CONFIG, WINDOWED_TRAIN_NORM_RTOL)
+    del windowed_model
+    say("17 windowed train f32", f"done in {time.perf_counter() - t0:.1f} s")
     say("all", f"{time.perf_counter() - t_all:.1f} s")
 
     k1, k2 = k1_times["encoder"], k2_times["window_l0"]
-    k1b = k1b_times["encoder"]
+    k1b, k2b = k1b_times["encoder"], k2b_times["window_l0"]
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": "msda_fwd", "route": "cuda", "source": K1_SRC,
@@ -1140,10 +1387,12 @@ def main() -> int:
          "library_device_ms": k2["library_device_ms"],
          "library": "composition: matmuls + scaled_dot_product_attention",
          "shape": "window level 0 104x192 L=64 bf16",
-         "launches_hybrid": hybrid_counts["window_attn_fwd"]},
+         "launches_hybrid": hybrid_counts["window_attn_fwd"],
+         "launches_train_windowed": win_counts["window_attn_fwd"]},
         {"name": "msda_bwd", "route": "cuda", "source": K1B_SRC,
          "replaces": K1B_TPU, "launches": train_counts["msda_bwd"],
-         "launches_per_step": bwd_per_step, "max_abs_err": k1b_err,
+         "launches_per_step": [c["msda_bwd"] for c in train_steps],
+         "max_abs_err": k1b_err,
          "ms": k1b["ms"], "device_ms": k1b["device_ms"],
          "kernel_device_ms": k1b["kernel_device_ms"],
          "plain_ms": k1b["plain_ms"],
@@ -1151,7 +1400,29 @@ def main() -> int:
          "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"],
          "library_ms": None, "library_device_ms": None,
          "shape": "encoder B=1 Lq=28560 bf16 (896x1536)",
-         "launches_train_fwd": train_counts["msda_fwd"]}]}),
+         "launches_train_fwd": train_counts["msda_fwd"],
+         "launches_train_windowed": win_counts["msda_bwd"]},
+        {"name": "window_attn_bwd", "route": "cuda", "source": K2B_SRC,
+         "replaces": K2B_TPU, "launches": win_counts["window_attn_bwd"],
+         "launches_per_step": {
+             "windowed": [c["window_attn_bwd"] for c in win_steps],
+             "hybrid": [c["window_attn_bwd"] for c in hyb_steps]},
+         "max_abs_err": k2b_err, "ms": k2b["ms"],
+         "device_ms": k2b["device_ms"],
+         "kernel_device_ms": k2b["kernel_device_ms"],
+         "plain_ms": k2b["plain_ms"],
+         "plain_device_ms": k2b["plain_device_ms"],
+         "library_ms": k2b["library_ms"],
+         "library_device_ms": k2b["library_device_ms"],
+         "library": "autograd backward of the composition: matmuls + "
+                    "scaled_dot_product_attention",
+         "bound_ms": k2b["bound_ms"], "bound_by": k2b["bound_by"],
+         "kernel_bound_ms": k2b["kernel_bound_ms"],
+         "kernel_bound_by": k2b["kernel_bound_by"],
+         "shape": "window level 0 112x192 L=64 bf16 (896x1536)",
+         "grid_level0": {k: k2b_times["grid_l0"][k] for k in (
+             "device_ms", "kernel_device_ms", "plain_device_ms",
+             "library_device_ms", "bound_ms", "kernel_bound_ms")}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -69,8 +69,9 @@ def window_attention_torch(x: torch.Tensor, pos: torch.Tensor,
     logits = torch.matmul(qh, kh.transpose(-1, -2)) / scale
     if bias is not None:
         logits = logits + bias[None].to(dt)
-    logits = logits.float().masked_fill(m[:, None, None, :],
-                                        torch.finfo(torch.float32).min)
+    # float32 softmax (float64 stays float64, for gradcheck)
+    logits = logits.to(torch.promote_types(dt, torch.float32)).masked_fill(
+        m[:, None, None, :], torch.finfo(torch.float32).min)
     attn = torch.softmax(logits, dim=-1).to(dt)
     out = torch.matmul(attn, vh).transpose(1, 2).reshape(-1, l, c)
     y = torch.matmul(out, out_weight.to(dt).t()) + out_bias.to(dt)

@@ -10,7 +10,15 @@ Tolerances: float32 atol 1e-4 / rtol 1e-4 (the kernel sums the
 projections, logits and value mix in float32 in another order and keeps the
 logits unrounded); bfloat16 against the plain version in float32 on the
 same bf16 inputs, atol 5e-2 (the kernel rounds to bf16 between its stages;
-the float32 reference does not).
+the float32 reference does not).  Backward (through
+``WindowAttnFunction``): against autograd of the plain version in float32
+on the same (bf16-rounded) inputs and cotangent, every gradient within
+1e-4 of its largest element in float32 (sums in another order, the bias
+table's float32 atomics in a run-dependent order) and within 3e-2 of it in
+bfloat16 (Q, K, V, dO, dQ/dK/dV and g_x/g_pos rounded to bf16, and the
+cancellation in dP - rowsum(P dP)), as ``chip_smoke.py`` phase 14 holds
+them.  The plain backward is checked against finite differences and JAX on
+CPU (test_torch_train_window_attn_grad.py).
 """
 import numpy as np
 import pytest
@@ -125,9 +133,10 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
             *geo)
     with pytest.raises(ValueError, match="padded"):
         window_attn_cuda.window_attention_cuda(*args, geo[0], 5, 4)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        window_attn_cuda.window_attention_cuda(args[0].requires_grad_(),
-                                               *args[1:], *geo)
+    with torch.no_grad():
+        _, o = window_attn_cuda.window_attention_fwd(*args, *geo)
+    with pytest.raises(ValueError, match="grad_out"):
+        window_attn_cuda.window_attention_bwd(args[0][:, :8], *args, o, *geo)
 
 
 def test_tiny_windowed_frame_on_gpu_matches_cpu(cuda):
@@ -156,3 +165,113 @@ def test_tiny_windowed_frame_on_gpu_matches_cpu(cuda):
     for key in ("pred_logits", "pred_boxes"):
         torch.testing.assert_close(out[key].cpu(), ref[key], atol=1e-3,
                                    rtol=1e-3)
+
+
+NAMES = ("x", "pos", "in_proj_weight", "in_proj_bias", "out_weight",
+         "out_bias", "bias")
+
+
+def _grads(fn, args, geo, g, dtype=None):
+    """Gradients of every differentiable input of one call, through ``fn``
+    (x and pos cast to ``dtype`` where given)."""
+    leaves = []
+    for i, a in enumerate((args[0], args[1]) + tuple(args[3:])):
+        if a is not None:
+            a = a.detach().clone()
+            a = a.to(dtype) if dtype is not None and i < 2 else a
+            a.requires_grad_()
+        leaves.append(a)
+    out = fn(leaves[0], leaves[1], args[2], *leaves[2:], *geo)
+    live = [t for t in leaves if t is not None]
+    return [n for n, t in zip(NAMES, leaves) if t is not None], \
+        torch.autograd.grad(out, live, g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_backward_matches_plain_autograd(cuda, case, dtype):
+    args, geo = _inputs(cuda, dtype, *CASES[case])
+    g = torch.from_numpy(np.random.default_rng(5).normal(
+        size=tuple(args[0].shape)).astype(np.float32)).to(cuda, dtype)
+    fwd, bwd = window_attn_cuda.launches, window_attn_cuda.bwd_launches
+    c, heads = CASES[case][3], CASES[case][4]
+    route = "tensor_cores" if dtype == torch.bfloat16 and \
+        c // heads in (16, 32, 64) else "cuda_cores"
+    routes_before = dict(window_attn_cuda.bwd_routes)
+    names, got = _grads(window_attn_cuda.window_attention_cuda, args, geo, g)
+    assert window_attn_cuda.launches == fwd + 1
+    assert window_attn_cuda.bwd_launches == bwd + 1
+    assert window_attn_cuda.bwd_routes[route] == routes_before[route] + 1
+    _, want = _grads(window_attention_torch, args, geo, g.float(),
+                     torch.float32)
+    torch.cuda.synchronize()
+    rel = 1e-4 if dtype == torch.float32 else 3e-2
+    for name, a, w in zip(names, got, want):
+        assert a.dtype == (dtype if name in ("x", "pos") else torch.float32)
+        assert torch.isfinite(a).all(), name
+        top = w.abs().max().item()
+        assert (a.float() - w).abs().max().item() <= rel * top + 1e-7, name
+
+
+@pytest.mark.parametrize("mode", ["inference_mode", "no_grad"])
+def test_no_gradient_no_backward_state(cuda, mode):
+    """Parameters that require grad, but no gradient asked for: the forward
+    kernel alone, no graph, nothing saved (the call allocates its output
+    and the head-output map only) and no backward launch."""
+    args, geo = _inputs(cuda, torch.bfloat16, *CASES["main_grid_l312"])
+    args = args[:3] + tuple(a.requires_grad_() for a in args[3:])
+    ctx = torch.inference_mode if mode == "inference_mode" else torch.no_grad
+    fwd, bwd = window_attn_cuda.launches, window_attn_cuda.bwd_launches
+    with ctx():
+        window_attn_cuda.window_attention_cuda(*args, *geo)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = window_attn_cuda.window_attention_cuda(*args, *geo)
+        torch.cuda.synchronize()
+    assert out.grad_fn is None and not out.requires_grad
+    assert torch.cuda.max_memory_allocated() - base <= 2 * out.nbytes + 4096
+    assert window_attn_cuda.launches == fwd + 2
+    assert window_attn_cuda.bwd_launches == bwd
+
+
+def test_tiny_windowed_train_step_on_gpu_matches_cpu(cuda):
+    """One float32 train step of a tiny windowed model (2 layers, window 4)
+    on a 2-frame clip: CUDA (K1 and K2, forward and backward) vs CPU (the
+    plain versions); the losses to 1e-4 relative, the gradient norm to
+    1e-3 (float32 sums in another order through the clip, the atomics'
+    order run-dependent)."""
+    import copy
+
+    from memotr_tpu_torch.data.loader import collate_clips
+    from memotr_tpu_torch.engine.trainer import Trainer
+    cfg = {"DATASET": "DanceTrack", "HIDDEN_DIM": 64, "FFN_DIM": 128,
+           "NUM_FEATURE_LEVELS": 4, "NUM_HEADS": 8, "NUM_ENC_POINTS": 4,
+           "NUM_DEC_POINTS": 4, "NUM_ENC_LAYERS": 2, "NUM_DEC_LAYERS": 3,
+           "MERGE_DET_TRACK_LAYER": 1, "NUM_DET_QUERIES": 30,
+           "DTYPE": "float32", "TRACK_SLOTS": 4, "MAX_GTS": 5,
+           "AUX_LOSS_WEIGHT": [1.0, 1.0], "ENCODER_TYPE": "windowed",
+           "WINDOW_SIZE": 4}
+    rng = np.random.default_rng(2)
+    items = [{"imgs": [rng.normal(size=(96, 128, 3)).astype(np.float32)
+                       for _ in range(2)],
+              "infos": [{"boxes": rng.uniform(0.2, 0.4, (3, 4)),
+                         "ids": np.arange(3), "labels": np.zeros(3, int),
+                         "areas": np.ones(3)} for _ in range(2)]}]
+    batch = collate_clips(items, cfg["MAX_GTS"])
+    torch.manual_seed(0)
+    model = build_model(cfg)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = Trainer(copy.deepcopy(model), cfg, device="cpu").step(batch)
+    fwd, bwd = window_attn_cuda.launches, window_attn_cuda.bwd_launches
+    out = Trainer(model, cfg, device=cuda).step(batch)
+    per_clip = 2 * 2 * 4                 # frames x layers x levels
+    assert window_attn_cuda.launches - fwd == per_clip
+    assert window_attn_cuda.bwd_launches - bwd == per_clip
+    for key in ("total_loss", "label_focal_loss", "box_l1_loss",
+                "box_giou_loss"):
+        np.testing.assert_allclose(float(out[key]), float(ref[key]),
+                                   rtol=1e-4, err_msg=key)
+    np.testing.assert_allclose(float(out["grad_norm"]),
+                               float(ref["grad_norm"]), rtol=1e-3)
