@@ -9,33 +9,47 @@ nonzero exit and no result line:
 2. build: the three kernels from memotr_tpu_torch/csrc/ (one nvcc each,
    in parallel), with ptxas's registers and spills per kernel;
 3. K1 (MSDA forward) vs plain PyTorch on the card at the MSDA shapes of the
-   paths (encoder B=1, decoder B=1 and B=2, one awkward shape), float32 and
+   paths (encoder B=1 and B=2, decoder B=1 and B=2, one awkward shape),
+   float32 and
    bfloat16, with out-of-bounds taps; per call, over 20 calls, the device
    time (the call's CUDA kernels, torch.profiler) and the event-timed call
    (which includes the wrapper's host work), and the achieved rate of
    gathered corner bytes;
 4. K2 (fused window attention) vs plain PyTorch at the main path's shapes
-   (window level 0, grid levels 0 and 3, with the 800x1536 canvas's padding
-   and its fully padded windows) and an awkward one, float32 and bfloat16;
+   (window level 0, grid levels 0 and 3, and window and grid level 0 at B=2
+   as the batched lanes give them, with the 800x1536 canvas's padding and
+   its fully padded windows) and an awkward one, float32 and bfloat16;
    device and event times of the kernel, the plain version and the library
    composition (matmuls + scaled_dot_product_attention), the kernel's
    achieved TFLOP/s, its time by CUDA kernel, and a check that bf16 took
    the fused tensor-core route;
 5. deformable slice: configs/train_dancetrack.yaml (seeded random weights)
    streams synthetic 800x1536 uint8 frames through the port's Submitter in
-   bfloat16; finite outputs, live tracks, launch counts, MOT txt;
+   bfloat16, its pipelined loop (the default) under
+   torch.cuda.set_sync_debug_mode("error"), so that any host-device sync
+   fails the run; finite outputs, live tracks, launch counts, MOT txt; then
+   the sync loop on the same frames: MOT txt byte-identical, the same
+   launch counts; steady ms/frame of both loops;
 6. one float32 frame of the deformable model through K1 and through the
    plain MSDA (TF32 off), compared;
 7. windowed slice: the fields of
    configs/train_dancetrack_windowed.yaml, 8 frames in bfloat16 through the
-   Submitter with the eval cache on; 12 K2 and 6 K1 launches per frame;
+   Submitter with the eval cache on, both loops as in phase 5; 12 K2 and 6
+   K1 launches per frame;
 8. one float32 frame of the windowed model through both kernels and
    through both plain versions (TF32 off), compared;
 9. profile: 3 more windowed frames timed, then again under torch.profiler:
    host wall time, device busy time and idle share, device time by kernel
    family;
 10. hybrid: configs/train_dancetrack.yaml with ENCODER_TYPE hybrid, 2
-    frames; 6 K2 and 12 K1 launches per frame;
+    frames, both loops; 6 K2 and 12 K1 launches per frame;
+18. batched serving (SUBMIT_BATCH 2) of the deformable and the windowed
+    model through stream_sequences, the grouping submit() runs: two lanes
+    of unequal length in one BatchedSubmitter; at float32 (on
+    scaled_weights_) each lane's frames and ids equal its B=1 run's, boxes
+    within FRAME_ATOL of the frame; launch counts per step; bf16 frames/s
+    at B=1 and B=2;
+19. USE_MOTION: a few bf16 deformable frames through the sync loop;
 11. K1 backward (csrc/msda_bwd.cu) vs autograd of the plain version at the
     training canvas's MSDA shapes (encoder B=1 Lq=28,560; decoder B=1 and
     B=2, Lq=364, out-of-bounds taps), float32 and bfloat16; device time of
@@ -50,7 +64,9 @@ nonzero exit and no result line:
     matching copies; then one more T=2 step under torch.profiler (device
     time by kernel family, host matching time);
 13. one float32 training step (T=1, TF32 off) through the kernels and
-    through the plain MSDA: total loss and gradient norms compared;
+    through the plain MSDA, on fixed seeded weights (``scaled_weights_``:
+    the forward has no atomics, so every kink falls the same way in every
+    run): total loss and gradient norms compared;
 14. K2 backward (csrc/window_attn_bwd.cu behind WindowAttnFunction) vs
     autograd of the plain version at the training canvas's window level 0
     (L=64) and every grid level (L=336, 84, 24, 6), the streaming canvas's
@@ -70,10 +86,15 @@ nonzero exit and no result line:
 16. hybrid training: 2 steps at T=2, the same checks, 6 T K2 and 12 T K1
     launches (forward and backward) a step;
 17. one float32 windowed training step (T=1, TF32 off) through the kernels
-    and through the plain K1 and K2: total loss and gradient norms
-    compared (the norms to 5e-3: WINDOWED_TRAIN_NORM_RTOL says why);
-then a JSON line of kernel results, the card's name and power limit and,
-last, the device line ``{"ok": true, "device": {...}}``.
+    and through the plain K1 and K2, on ``scaled_weights_``: total loss
+    and gradient norms compared (the norms to 5e-3:
+    WINDOWED_TRAIN_NORM_RTOL says why);
+20. conv: configs/train_dancetrack.yaml with ENCODER_TYPE conv, 4 frames
+    through both loops as in phase 5 (6 K1 launches a frame), then one T=2
+    training step at 896x1536 (6 T K1 forward and backward launches);
+Phases run in the order 1-10, 18, 19, 11-17, 20; then a JSON line of
+kernel results, the card's name and power limit and, last, the device line
+``{"ok": true, "device": {...}}``.
 
 There is no CPU path: without a CUDA device the script exits nonzero.
 """
@@ -127,16 +148,18 @@ K1B_REL = 1e-5
 K1B_BF16_VALUE_RTOL = 8e-3
 # one float32 train step (T=1), kernels vs plain MSDA: float32 sums in
 # another order in 12 MSDA calls, forward and backward, carried through the
-# model: the loss to 1e-4 relative, the gradient norms to 1e-3
+# model: the loss to 1e-4 relative, the gradient norms to 1e-3.  Both
+# float32 steps run on scaled_weights_, fixed for every run: on weights
+# that differ from run to run (trained by the backward kernels' atomics) a
+# rounding-sized difference flipped a ReLU or bilinear tap at its kink in
+# about one run in four; on fixed weights every kink falls the same way in
+# every run.  Five H100 runs read a largest norm change of 5.97e-6 here
+# and 2.15e-4 in the windowed step, the same in each (PERF.md section 6).
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_NORM_RTOL = 1e-3
 # the same for the windowed model, kernels vs plain K1 and K2 (12 K2 and 6
-# K1 calls, forward and backward).  On the weights phase 15 leaves, three
-# exit-0 H100 runs read 2.1e-5, 5.7e-5 and 1.28e-3 as the largest relative
-# change of a group's norm; the last is a rounding-sized difference
-# flipping a ReLU or a bilinear tap at its kink (in that run a 1e-6 nudge
-# of the plain versions' outputs moved the `points` norm 1.78e-3).  5e-3 is
-# four times the largest reading; each K2 call is held tightly in phase 14.
+# K1 calls, forward and backward), wider for its 12 K2 calls: on trained
+# weights they read up to 1.28e-3; each K2 call is held tightly in phase 14
 WINDOWED_TRAIN_NORM_RTOL = 5e-3
 # K2 backward against autograd of the plain version in float32 on the same
 # (bf16-rounded) inputs and cotangent, every gradient within a share of its
@@ -200,6 +223,23 @@ IMAGENET_MEAN = np.asarray((0.485, 0.456, 0.406), np.float32)
 IMAGENET_STD = np.asarray((0.229, 0.224, 0.225), np.float32)
 N_FRAMES = 8
 N_HYBRID_FRAMES = 2
+# the batched serving path (SUBMIT_BATCH 2): two lanes of unequal length;
+# at float32 (TF32 off) each lane's ids equal its B=1 run's and its boxes
+# agree to FRAME_ATOL["pred_boxes"] of the frame's size (float32 sums of
+# another batch size, as phase 6 holds kernels vs plain on one frame);
+# frames/s in bf16 over N_FPS_FRAMES a lane.  The float32 check runs on
+# scaled_weights_ (whose float32 results are stable to another summation
+# order), whose detection scores lie around 0.2-0.7: at BATCH_THRESH for
+# the detection, track and result thresholds, tracks are born, kept and
+# dropped in both models
+BATCH_LANES = (6, 4)
+BATCH_THRESH = 0.3
+N_FPS_FRAMES = 10
+N_MOTION_FRAMES = 4
+# configs/train_dancetrack.yaml with ENCODER_TYPE conv (6 conv layers)
+CONV_CONFIG = dict(CONFIG, ENCODER_TYPE="conv")
+CONV_TRAIN_CONFIG = dict(TRAIN_CONFIG, ENCODER_TYPE="conv")
+N_CONV_FRAMES = 4
 CANVAS = (800, 1536)
 ORI_HW = (720, 1440)         # resizes to 768x1536: the last 32 rows are pad
 RESIZED = (768, 1536)
@@ -305,7 +345,9 @@ def phase_k1(device):
     """K1 vs plain version on the card; returns (max f32 error, times)."""
     from memotr_tpu_torch.ops import msda_cuda
     from memotr_tpu_torch.ops.msda import ms_deform_attn_torch as plain
-    cases = [("encoder", 1, ENC_SHAPES, 8, 32, 4, sum(h * w for h, w in ENC_SHAPES)),
+    lq_enc = sum(h * w for h, w in ENC_SHAPES)
+    cases = [("encoder", 1, ENC_SHAPES, 8, 32, 4, lq_enc),
+             ("encoder_b2", 2, ENC_SHAPES, 8, 32, 4, lq_enc),
              ("decoder_b1", 1, ENC_SHAPES, 8, 32, 4, 364),
              ("decoder_b2", 2, ENC_SHAPES, 8, 32, 4, 364),
              ("awkward", 1, ((11, 17),), 2, 16, 3, 5)]
@@ -331,7 +373,7 @@ def phase_k1(device):
                 say("3 K1", f"{name} B={b} Lq={lq} M={m} D={d} P={p} "
                     f"L={len(shapes)} {str(dtype)[6:]}: max_abs_err {err:.3e} "
                     f"({tol}) ok")
-            if name in ("encoder", "decoder_b1", "decoder_b2"):
+            if name != "awkward":
                 v, loc, aw = msda_inputs(1, b, shapes, m, d, p, lq,
                                          torch.bfloat16, device)
                 k_ms, k_dev, _ = timed(lambda: msda_cuda.ms_deform_attn_cuda(
@@ -360,11 +402,20 @@ def canvas_mask(device, canvas=CANVAS, valid=RESIZED) -> torch.Tensor:
     return mask
 
 
+# K2's named cases: (pyramid level, grid attention, batch); "_b2" are the
+# batched serving lanes' shapes (SUBMIT_BATCH 2, one canvas)
+K2_CASES = {"window_l0": (0, False, 1), "grid_l0": (0, True, 1),
+            "grid_l1": (1, True, 1), "grid_l2": (2, True, 1),
+            "grid_l3": (3, True, 1), "window_l0_b2": (0, False, 2),
+            "grid_l0_b2": (0, True, 2)}
+
+
 def k2_case(name, dtype, device, seed=0, train=False):
     """(args, (heads, window_h, window_w)) of a window_attention call: the
     main path's level maps (C=256, 8 heads, window 8) of the 800x1536
     streaming canvas, or with ``train`` of the 896x1536 training canvas,
-    padded to window multiples with the canvas's mask, or an awkward one."""
+    padded to window multiples with the canvas's mask, at batch 1 or 2
+    (``K2_CASES``), or an awkward one."""
     from memotr_tpu_torch.models.memotr import _downsample_mask
     from memotr_tpu_torch.ops.window_attn import grid_transpose
     rng = np.random.default_rng(seed)
@@ -377,13 +428,13 @@ def k2_case(name, dtype, device, seed=0, train=False):
         mask[1, :win, :win] = True             # a fully padded window
         grid, with_bias = False, False
     else:
-        b, heads, win = 1, 8, 8
-        lvl = {"window_l0": 0, "grid_l0": 0, "grid_l1": 1, "grid_l2": 2,
-               "grid_l3": 3}[name]
+        heads, win = 8, 8
+        lvl, grid, b = K2_CASES[name]
         h, w = shapes[lvl]
         mask = _downsample_mask(canvas_mask(device, *canvas), h, w)
         mask = F.pad(mask, (0, (-w) % win, 0, (-h) % win), value=True)
-        grid, with_bias = name.startswith("grid"), True
+        mask = mask.expand(b, -1, -1).contiguous()
+        with_bias = True
     c = 32 if name == "awkward" else 256
     hp, wp = mask.shape[1:]
     wh, ww = (hp // win, wp // win) if grid else (win, win)
@@ -458,7 +509,8 @@ def phase_k2(device):
     worst = 0.0
     times = {}
     with torch.inference_mode():
-        for name in ("window_l0", "grid_l0", "grid_l3", "awkward"):
+        for name in ("window_l0", "grid_l0", "grid_l3", "window_l0_b2",
+                     "grid_l0_b2", "awkward"):
             for dtype in (torch.float32, torch.bfloat16):
                 args, geo = k2_case(name, dtype, device)
                 out = window_attention_cuda(*args, *geo)
@@ -576,12 +628,7 @@ def synthetic_frames(n_frames: int, seed: int = 0):
                "path": f"{t + 1:08d}.jpg"}
 
 
-def random_weights_(model, seed: int = 7):
-    """Every parameter and buffer drawn from a seeded generator, as the JAX
-    package's reference-parity test draws them; then norms around one and
-    unit-scale detection queries, which keep the 300 queries distinct so
-    that their scores spread around the thresholds and detections fire."""
-    g = torch.Generator().manual_seed(seed)
+def _seeded_buffers_(model, g: torch.Generator):
     with torch.no_grad():
         for name, buf in model.named_buffers():
             if "running_var" in name:
@@ -589,6 +636,16 @@ def random_weights_(model, seed: int = 7):
             else:
                 buf.copy_(torch.randn(buf.shape, generator=g) * 0.3
                           + (1.0 if "weight" in name else 0.0))
+
+
+def random_weights_(model, seed: int = 7):
+    """Every parameter and buffer drawn from a seeded generator, as the JAX
+    package's reference-parity test draws them; then norms around one and
+    unit-scale detection queries, which keep the 300 queries distinct so
+    that their scores spread around the thresholds and detections fire."""
+    g = torch.Generator().manual_seed(seed)
+    _seeded_buffers_(model, g)
+    with torch.no_grad():
         for _, p in model.named_parameters():
             p.copy_(torch.randn(p.shape, generator=g) * 0.08)
         for mod in model.modules():
@@ -596,6 +653,31 @@ def random_weights_(model, seed: int = 7):
                 mod.weight.add_(1.0)
         model.det_query_embed.mul_(12.5)
         model.det_anchor.mul_(12.5)
+    return model
+
+
+def scaled_weights_(model, seed: int = 7):
+    """Every parameter and buffer drawn from a seeded generator, each
+    weight matrix or kernel at std 1/sqrt(fan_in) (the scale at which
+    activations and gradients keep their size through depth, as the
+    model's own initialisation has it), vectors (biases) at std 0.02,
+    norms' scales around one, and unit-scale detection queries as in
+    ``random_weights_`` (so that detections fire); buffers as
+    ``random_weights_`` draws them.  ``random_weights_`` draws every
+    parameter at std 0.08, which grows the ResNet's activations ~5x a
+    3x3 conv: fine for streaming, but its float32 gradients are too
+    rough to compare two summation orders (PERF.md section 6, F3)."""
+    g = torch.Generator().manual_seed(seed)
+    _seeded_buffers_(model, g)
+    with torch.no_grad():
+        for _, p in model.named_parameters():
+            std = p[0].numel() ** -0.5 if p.dim() >= 2 else 0.02
+            p.copy_(torch.randn(p.shape, generator=g) * std)
+        for mod in model.modules():
+            if isinstance(mod, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
+                mod.weight.add_(1.0)
+        for p in (model.det_query_embed, model.det_anchor):
+            p.copy_(torch.randn(p.shape, generator=g))
     return model
 
 
@@ -615,20 +697,14 @@ def read_counts():
             "window_attn_bwd": window_attn_cuda.bwd_launches}
 
 
-def phase_slice(tag, config, n_frames, per_frame, device, live="first"):
-    """Streams ``n_frames`` synthetic frames of ``config`` through the
-    Submitter; checks each kernel's launches per frame (``per_frame``),
-    finite results and, unless ``live`` is None, live tracks in the first
-    (``"first"``) or some (``"any"``) frame and a non-empty MOT txt.
-    Returns the model and the launch counts of the run."""
+def checked_submitter(*args, **kwargs):
+    """The port's Submitter, checking each frame's host results before
+    writing them (``live``: the live slots of each frame)."""
     from memotr_tpu_torch.engine.submit import Submitter
-    from memotr_tpu_torch.models.memotr import build_model
 
     class CheckedSubmitter(Submitter):
-        """Checks each frame's host results before writing them."""
-
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, **kwargs)
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
             self.live = []
 
         def _write_frame(self, i, results, ori_hw, path, bdd_results):
@@ -636,17 +712,78 @@ def phase_slice(tag, config, n_frames, per_frame, device, live="first"):
                 assert np.isfinite(results[key]).all(), (i, key)
             self.live.append(int(results["mask"].sum()))
             super()._write_frame(i, results, ori_hw, path, bdd_results)
+    return CheckedSubmitter(*args, **kwargs)
 
-    model = random_weights_(build_model(config)).to(device).eval()
+
+def steady_ms(seconds, skip: int = 2) -> np.ndarray:
+    """Per-frame ms from frame ``skip + 1`` on (the first frames build the
+    eval cache and warm the allocator)."""
+    ms = 1e3 * np.asarray(seconds)
+    return ms[skip:] if len(ms) > skip else ms
+
+
+def stream(tag, model, config, frames, device, loop="pipelined",
+           no_sync=False):
+    """Streams ``frames`` through a checked Submitter with the given loop;
+    the launch counts are set to 0 just before and read just after.  With
+    ``no_sync`` the run is under torch.cuda.set_sync_debug_mode("error"):
+    any synchronizing CUDA call (a device-to-host copy, an item(), a
+    pageable upload, a stream synchronize) raises.  The host seconds of
+    each frame step's call (normalize, forward, lifecycle, updater, all
+    asynchronous: the dispatch) go to ``sub.dispatch``.  Returns
+    (submitter, counts, MOT txt, wall seconds)."""
     with tempfile.TemporaryDirectory() as out_dir:
-        sub = CheckedSubmitter("DanceTrack", synthetic_frames(n_frames),
-                               "synthetic", out_dir, model, config, device)
+        sub = checked_submitter("DanceTrack", frames, "synthetic", out_dir,
+                                model, config, device)
+        step, sub.dispatch = sub._step, []
+
+        def timed_step(*args):
+            t0 = time.perf_counter()
+            out = step(*args)
+            sub.dispatch.append(time.perf_counter() - t0)
+            return out
+        sub._step = timed_step
+        if loop == "sync":
+            sub.pipelined = False
+        assert sub.pipelined == (loop == "pipelined"), (tag, loop)
+        torch.cuda.synchronize()
         reset_counts()
-        sub.run()
+        t0 = time.perf_counter()
+        if no_sync:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            sub.run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
         counts = read_counts()
         with open(os.path.join(out_dir, "tracker", "synthetic.txt")) as f:
-            lines = f.read().splitlines()
+            txt = f.read()
+    return sub, counts, txt, wall
+
+
+def phase_slice(tag, config, n_frames, per_frame, device, live="first"):
+    """Streams ``n_frames`` synthetic frames of ``config`` through the
+    Submitter's pipelined loop (its default) with no host sync allowed,
+    then through its sync loop: the MOT txt byte-identical and the launch
+    counts equal.  Checks each kernel's launches per frame (``per_frame``),
+    finite results and, unless ``live`` is None, live tracks in the first
+    (``"first"``) or some (``"any"``) frame and a non-empty MOT txt; prints
+    each loop's steady ms/frame.  Returns the model and the launch counts
+    of the pipelined run."""
+    from memotr_tpu_torch.models.memotr import build_model
+
+    model = random_weights_(build_model(config)).to(device).eval()
+    runs = {loop: stream(tag, model, config, synthetic_frames(n_frames),
+                         device, loop, no_sync=loop == "pipelined")
+            for loop in ("pipelined", "sync")}
+    sub, counts, txt, _ = runs["pipelined"]
+    lines = txt.splitlines()
     assert len(sub.live) == n_frames, sub.live
+    say(tag, "pipelined loop under torch.cuda.set_sync_debug_mode('error'): "
+        "no synchronizing CUDA call in the dispatch, prefetch or writer "
+        "thread ok")
     for kernel, n in per_frame.items():
         assert counts[kernel] == n * n_frames, \
             f"{kernel} launches {counts[kernel]}, expected {n} x {n_frames}"
@@ -658,13 +795,22 @@ def phase_slice(tag, config, n_frames, per_frame, device, live="first"):
         assert lines, "empty MOT txt"
     say(tag, f"live slots per frame {sub.live}; MOT txt lines {len(lines)}"
         + (f"; first line {lines[0].strip()}" if lines else ""))
-    ms = [1e3 * s for s in sub.frame_seconds]
-    steady = ms[2:] if len(ms) > 2 else ms[1:]
-    say(tag, f"bf16 ms/frame (upload, step, fetch) all frames "
-        f"{[round(v, 2) for v in ms]}; frames {len(ms) - len(steady) + 1}-"
-        f"{len(ms)}: mean {np.mean(steady):.2f} median "
-        f"{np.median(steady):.2f} min {np.min(steady):.2f} max "
-        f"{np.max(steady):.2f}")
+    _, sync_counts, sync_txt, _ = runs["sync"]
+    assert sync_txt == txt, f"{tag}: the sync loop's MOT txt differs"
+    assert sync_counts == counts, (sync_counts, counts)
+    say(tag, f"sync loop on the same frames: MOT txt byte-identical "
+        f"({len(txt)} bytes) and the same launch counts ok")
+    for loop, (s, _, _, wall) in runs.items():
+        ms = steady_ms(s.frame_seconds)
+        say(tag, f"bf16 {loop} ms/frame ("
+            + ("upload, step, fetch" if loop == "sync" else
+               "between completions in the writer")
+            + f"), frames 3-{n_frames}: mean {ms.mean():.2f} median "
+            f"{np.median(ms):.2f} min {ms.min():.2f} max {ms.max():.2f}; "
+            f"of it the host dispatch of the frame step mean "
+            f"{steady_ms(s.dispatch).mean():.2f}; "
+            f"all frames {[round(float(v), 2) for v in 1e3 * np.asarray(s.frame_seconds)]}; "
+            f"run wall {1e3 * wall:.1f} ms")
     return model, counts
 
 
@@ -1112,10 +1258,12 @@ def train_batch(t: int, seed: int):
 
 
 def phase_train(device, tag="12 train", config=TRAIN_CONFIG,
-                steps=TRAIN_STEPS, per_frame=None):
+                steps=TRAIN_STEPS, per_frame=None, unreached=()):
     """Trains the bf16 ``config`` model through the Trainer (``steps``:
     the clip length of each step) and checks each kernel's launches per
-    frame (``per_frame``; default: the deformable model's); returns (the
+    frame (``per_frame``; default: the deformable model's) and that the
+    loss reaches every trainable parameter but those named in
+    ``unreached`` (their gradient is zero, as JAX's is); returns (the
     trainer, counts of the run, each step's counts)."""
     from memotr_tpu_torch.engine.trainer import Trainer
     from memotr_tpu_torch.models.memotr import build_model
@@ -1148,9 +1296,11 @@ def phase_train(device, tag="12 train", config=TRAIN_CONFIG,
         peaks[t] = torch.cuda.max_memory_allocated(device) / 2 ** 30
         for k, v in logs.items():
             assert np.isfinite(float(v)), (i, k, v)
-        assert logs["params_without_grad"] == 0, logs["params_without_grad"]
+        assert logs["params_without_grad"] == len(unreached), \
+            logs["params_without_grad"]
         for name, p in model.named_parameters():
             assert (p.grad is None) == (not p.requires_grad), name
+            assert name not in unreached or not p.grad.any(), name
         for kernel, n in per_frame.items():
             assert counts[kernel] == n * t, \
                 f"{kernel} launches {counts[kernel]}, expected {n} x {t}"
@@ -1163,8 +1313,10 @@ def phase_train(device, tag="12 train", config=TRAIN_CONFIG,
                         for k, n in per_frame.items())
             + f" launches ok; host matching copies {copies} (one per frame)")
     n_frozen = sum(not p.requires_grad for p in model.parameters())
-    say(tag, f"every trainable parameter got a gradient in every step, the "
-        f"{n_frozen} frozen ones (stem, layer1) none; peak device memory "
+    say(tag, f"every trainable parameter got a gradient in every step"
+        + (f" ({', '.join(unreached)}: zero, unread by this model)"
+           if unreached else "")
+        + f", the {n_frozen} frozen ones (stem, layer1) none; peak device memory "
         f"(max_memory_allocated) " + ", ".join(
             f"T={t} {gib:.2f} GiB" for t, gib in sorted(peaks.items())))
     return trainer, totals, per_step
@@ -1259,21 +1411,161 @@ def phase_train_f32(model_bf16, device, tag="13 train f32",
         res[route] = (float(logs["total_loss"]), norms)
         del tr, m
     (lk, nk), (lp, npl) = res["kernels"], res["plain"]
-    assert np.isfinite(lk) and abs(lk - lp) <= TRAIN_LOSS_RTOL * abs(lp), \
-        (lk, lp)
+    loss_rel = abs(lk - lp) / abs(lp)
     say(tag, f"TF32 off; T=1 total_loss kernels {lk:.7f} plain {lp:.7f} "
-        f"(rel {abs(lk - lp) / abs(lp):.2e} <= {TRAIN_LOSS_RTOL}) ok")
-    for g in nk:
-        rel = abs(nk[g] - npl[g]) / max(abs(npl[g]), 1e-30)
-        assert rel <= norm_rtol or nk[g] == npl[g], (g, nk[g], npl[g])
+        f"(rel {loss_rel:.2e}, tolerance {TRAIN_LOSS_RTOL})")
+    rels = {g: abs(nk[g] - npl[g]) / max(abs(npl[g]), 1e-30) for g in nk}
+    for g, rel in rels.items():
         say(tag, f"grad norm {g}: kernels {nk[g]:.6e} plain {npl[g]:.6e} "
-            f"(rel {rel:.2e} <= {norm_rtol}) ok")
+            f"(rel {rel:.2e}, tolerance {norm_rtol})")
+    assert np.isfinite(lk) and loss_rel <= TRAIN_LOSS_RTOL, (lk, lp)
+    for g, rel in rels.items():
+        assert rel <= norm_rtol or nk[g] == npl[g], (g, nk[g], npl[g])
+    say(tag, f"loss and every group's norm within tolerance ok; largest "
+        f"norm change {max(rels.values()):.2e}")
+
+
+# --------------------------------------------------------- batched serving
+class SyntheticSequence:
+    """``n`` synthetic frames behind the interface of ``SeqDataset`` that
+    ``stream_sequences`` reads: length, indexing and ``padded_canvas``."""
+
+    def __init__(self, n: int, seed: int):
+        self.frames = list(synthetic_frames(n, seed))
+
+    def __len__(self):
+        return len(self.frames)
+
+    def __getitem__(self, i):
+        return self.frames[i]
+
+    def padded_canvas(self):
+        return CANVAS
+
+
+def mot_rows(path):
+    """MOT txt -> [(frame, id, x, y, w, h)]."""
+    with open(path) as f:
+        return [tuple(int(v) if i < 2 else float(v) for i, v in
+                      enumerate(line.split(",")[:6]))
+                for line in f.read().splitlines()]
+
+
+def check_counts(tag, counts, per_step, steps):
+    for kernel, n in per_step.items():
+        assert counts[kernel] == n * steps, \
+            f"{tag}: {kernel} launches {counts[kernel]}, expected {n} x {steps}"
+    return ", ".join(f"{k} {counts[k]} = {n} x {steps}"
+                     for k, n in per_step.items())
+
+
+def phase_batched(device, config, per_step, tag):
+    """SUBMIT_BATCH 2 through ``stream_sequences`` (what ``submit()`` runs
+    after loading): two lanes of unequal length in one BatchedSubmitter.
+    At float32 (TF32 off, ``scaled_weights_``, thresholds BATCH_THRESH)
+    against SUBMIT_BATCH 1 on the same sequences: each lane's frames and
+    ids equal, boxes within FRAME_ATOL of the frame's size, launch counts
+    per step (``per_step``).  Then bf16 frames/s at B=1 (the
+    Submitter) and B=2 (the BatchedSubmitter), steady state.  Returns the
+    launch counts of the bf16 B=2 run and the largest box difference."""
+    from memotr_tpu_torch.engine.submit import (BatchedSubmitter, Submitter,
+                                                stream_sequences)
+    from memotr_tpu_torch.models.memotr import build_model
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dict(config, DTYPE="float32", DET_SCORE_THRESH=BATCH_THRESH,
+                 TRACK_SCORE_THRESH=BATCH_THRESH,
+                 RESULT_SCORE_THRESH=BATCH_THRESH)
+    model = scaled_weights_(build_model(cfg32)).to(device).eval()
+    seqs = [(f"lane{i}", SyntheticSequence(n, seed=3 + i))
+            for i, n in enumerate(BATCH_LANES)]
+    rows = {}
+    for batch in (1, 2):
+        with tempfile.TemporaryDirectory() as out:
+            torch.cuda.synchronize()
+            reset_counts()
+            stream_sequences("DanceTrack", seqs, out, model,
+                             dict(cfg32, SUBMIT_BATCH=batch), device)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            rows[batch] = {name: mot_rows(os.path.join(
+                out, "tracker", f"{name}.txt")) for name, _ in seqs}
+        steps = sum(BATCH_LANES) if batch == 1 else max(BATCH_LANES)
+        say(tag, f"float32 (TF32 off) SUBMIT_BATCH {batch}: launches "
+            f"{check_counts(tag, counts, per_step, steps)} steps ok")
+    worst, tol = 0.0, FRAME_ATOL["pred_boxes"]
+    size = np.asarray(ORI_HW[::-1] * 2, np.float64)      # x, y, w, h
+    for (name, _), n in zip(seqs, BATCH_LANES):
+        ref, got = rows[1][name], rows[2][name]
+        assert ref, f"{name}: empty MOT txt"
+        keys = [r[:2] for r in ref], [g[:2] for g in got]
+        assert keys[1] == keys[0], (
+            f"{name}: frames or ids differ from the B=1 run: "
+            f"{len(keys[0])} vs {len(keys[1])} lines, first difference "
+            + str(next((a, b) for a, b in zip(*keys) if a != b)
+                  if any(a != b for a, b in zip(*keys)) else "in length"))
+        assert max(r[0] for r in got) <= n, name
+        diff = max(np.abs(np.subtract(r[2:], g[2:]) / size).max()
+                   for r, g in zip(ref, got))
+        assert diff <= tol, (name, diff)
+        worst = max(worst, diff)
+        say(tag, f"float32 {name} ({n} frames): {len(got)} MOT lines, "
+            f"frames and ids equal to the B=1 run, boxes within {diff:.3e} "
+            f"of the frame's size (<= {tol}) ok")
+
+    model = random_weights_(build_model(config)).to(device).eval()
+    lanes = [SyntheticSequence(N_FPS_FRAMES, seed=5 + i) for i in range(2)]
+    fps = {}
+    with tempfile.TemporaryDirectory() as out:
+        for batch in (1, 2):
+            if batch == 1:
+                sub = Submitter("DanceTrack", iter(lanes[0].frames), "lane0",
+                                out, model, config, device)
+            else:
+                sub = BatchedSubmitter("DanceTrack", lanes, ["lane0", "lane1"],
+                                       out, model, config, device)
+            torch.cuda.synchronize()
+            reset_counts()
+            sub.run()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            launches = check_counts(tag, counts, per_step, N_FPS_FRAMES)
+            ms = steady_ms(sub.frame_seconds)
+            fps[batch] = batch * 1e3 / ms.mean()
+            say(tag, f"bf16 B={batch}: {fps[batch]:.2f} frames/s over steps "
+                f"3-{N_FPS_FRAMES} (ms/step mean {ms.mean():.2f}, median "
+                f"{np.median(ms):.2f}); launches {launches} steps ok")
+    say(tag, f"bf16 frames/s B=2 / B=1 = {fps[2] / fps[1]:.3f}")
+    return counts, worst
+
+
+def phase_motion(device, tag="19 motion"):
+    """USE_MOTION through the Submitter's sync loop (a few bf16 frames of
+    the deformable model): the loop taken, the launches, the records."""
+    from memotr_tpu_torch.models.memotr import build_model
+    cfg = dict(CONFIG, USE_MOTION=True)
+    model = random_weights_(build_model(cfg)).to(device).eval()
+    sub, counts, txt, wall = stream(tag, model, cfg,
+                                    synthetic_frames(N_MOTION_FRAMES, seed=6),
+                                    device, loop="sync")
+    per_frame = CONFIG["NUM_ENC_LAYERS"] + CONFIG["NUM_DEC_LAYERS"]
+    assert counts["msda_fwd"] == per_frame * N_MOTION_FRAMES, counts
+    assert len(sub.live) == N_MOTION_FRAMES
+    long = sum(len(m) >= m.min_record_length
+               for m in sub.motion_bank.records.values())
+    say(tag, f"sync loop, {N_MOTION_FRAMES} frames in {1e3 * wall:.1f} ms: "
+        f"msda_fwd launches {counts['msda_fwd']} = {per_frame} x "
+        f"{N_MOTION_FRAMES} ok; {len(sub.motion_bank.records)} tracks "
+        f"recorded, {long} with a record long enough to extrapolate; MOT "
+        f"lines {len(txt.splitlines())}")
+    return counts
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke run needs "
                          "an NVIDIA GPU")
+    from memotr_tpu_torch.models.memotr import build_model
     device = torch.device("cuda", 0)
     t_all = time.perf_counter()
     card = subprocess.run(
@@ -1326,15 +1618,29 @@ def main() -> int:
     say("10 hybrid", f"done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    dec_layers = CONFIG["NUM_DEC_LAYERS"]
+    batched_counts, batch_box = phase_batched(
+        device, CONFIG, {"msda_fwd": CONFIG["NUM_ENC_LAYERS"] + dec_layers,
+                         "window_attn_fwd": 0}, "18 batched deformable")
+    win_batched_counts, win_batch_box = phase_batched(
+        device, WINDOWED_CONFIG,
+        {"window_attn_fwd": WINDOWED_CONFIG["NUM_ENC_LAYERS"] * n_levels,
+         "msda_fwd": dec_layers}, "18 batched windowed")
+    say("18 batched", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_motion(device)
+    say("19 motion", f"done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     k1b_err, k1b_times = phase_k1_bwd(device)
     say("11 K1 bwd", f"done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     trainer, train_counts, train_steps = phase_train(device)
     profile_train_step(trainer, device)
     say("12 train", f"done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase_train_f32(trainer.model, device)
     del trainer
+    t0 = time.perf_counter()
+    phase_train_f32(scaled_weights_(build_model(TRAIN_CONFIG)), device)
     say("13 train f32", f"done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1349,7 +1655,6 @@ def main() -> int:
          "msda_fwd": win_dec, "msda_bwd": win_dec})
     profile_train_step(trainer, device, "15 windowed train",
                        "K2 window_attn_bwd")
-    windowed_model = trainer.model
     del trainer
     say("15 windowed train", f"done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1362,10 +1667,26 @@ def main() -> int:
     del trainer
     say("16 hybrid train", f"done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_train_f32(windowed_model, device, "17 windowed train f32",
-                    WINDOWED_TRAIN_CONFIG, WINDOWED_TRAIN_NORM_RTOL)
-    del windowed_model
+    phase_train_f32(scaled_weights_(build_model(WINDOWED_TRAIN_CONFIG)),
+                    device, "17 windowed train f32", WINDOWED_TRAIN_CONFIG,
+                    WINDOWED_TRAIN_NORM_RTOL)
     say("17 windowed train f32", f"done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    model, conv_counts = phase_slice(
+        "20 conv", CONV_CONFIG, N_CONV_FRAMES,
+        {"msda_fwd": CONV_CONFIG["NUM_DEC_LAYERS"], "window_attn_fwd": 0},
+        device, live=None)
+    del model
+    conv_dec = CONV_TRAIN_CONFIG["NUM_DEC_LAYERS"]
+    # the conv encoder reads no position embedding, so the level embedding
+    # added to them gets no gradient
+    trainer, conv_train_counts, _ = phase_train(
+        device, "20 conv train", CONV_TRAIN_CONFIG, (2,),
+        {"msda_fwd": conv_dec, "msda_bwd": conv_dec, "window_attn_fwd": 0,
+         "window_attn_bwd": 0}, unreached=("transformer.level_embed",))
+    del trainer
+    say("20 conv", f"done in {time.perf_counter() - t0:.1f} s")
     say("all", f"{time.perf_counter() - t_all:.1f} s")
 
     k1, k2 = k1_times["encoder"], k2_times["window_l0"]
@@ -1378,7 +1699,13 @@ def main() -> int:
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": None,
          "library_device_ms": None, "shape": "encoder B=1 Lq=25512 bf16",
-         "launches_hybrid": hybrid_counts["msda_fwd"]},
+         "launches_hybrid": hybrid_counts["msda_fwd"],
+         "launches_batched": batched_counts["msda_fwd"],
+         "launches_conv": conv_counts["msda_fwd"],
+         "launches_train_conv": conv_train_counts["msda_fwd"],
+         "encoder_b2": {k: k1_times["encoder_b2"][k] for k in (
+             "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
+             "bound_by")}},
         {"name": "window_attn_fwd", "route": "cuda", "source": K2_SRC,
          "replaces": K2_TPU, "launches": counts["window_attn_fwd"],
          "max_abs_err": k2_err, "ms": k2["ms"], "device_ms": k2["device_ms"],
@@ -1388,7 +1715,12 @@ def main() -> int:
          "library": "composition: matmuls + scaled_dot_product_attention",
          "shape": "window level 0 104x192 L=64 bf16",
          "launches_hybrid": hybrid_counts["window_attn_fwd"],
-         "launches_train_windowed": win_counts["window_attn_fwd"]},
+         "launches_train_windowed": win_counts["window_attn_fwd"],
+         "launches_batched": win_batched_counts["window_attn_fwd"],
+         **{case: {k: k2_times[case][k] for k in (
+             "ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
+             "library_device_ms", "bound_ms", "bound_by")}
+            for case in ("window_l0_b2", "grid_l0_b2")}},
         {"name": "msda_bwd", "route": "cuda", "source": K1B_SRC,
          "replaces": K1B_TPU, "launches": train_counts["msda_bwd"],
          "launches_per_step": [c["msda_bwd"] for c in train_steps],

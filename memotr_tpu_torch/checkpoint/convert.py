@@ -18,6 +18,7 @@ into ``win_attn.in_proj_weight``; the depthwise ``lepe_dwconv`` kernel
 (3, 3, 1, C) becomes (C, 1, 3, 3); ``cpb_mlp1/2`` (per layer, or on the
 encoder), ``topdown_mix``, ``bottomup_mix``, ``final_norm`` and the hybrid
 ``coarse`` deformable layer map like any Dense, LayerNorm or MSDA module.
+The conv encoder's ``conv3x3`` kernel is an HWIO Conv like the backbone's.
 
 Trees are nested dicts of array-likes (``np.asarray`` is applied to every
 leaf), so Orbax-restored JAX params convert without importing JAX here.

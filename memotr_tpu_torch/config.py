@@ -61,6 +61,13 @@ _DEFAULTS = {
     "WINDOWED_SHARED_CPB": False,
     "HYBRID_DEFORM_MIN_LEVEL": 1,
     "EVAL_CACHE": True,
+    # streaming: the batched loop's lanes, post-hoc motion, debug dumps
+    "SUBMIT_BATCH": 1,
+    "USE_MOTION": False,
+    "MOTION_LAMBDA": 0.5,
+    "MOTION_MIN_LENGTH": 3,
+    "MOTION_MAX_LENGTH": 5,
+    "VISUALIZE": False,
 }
 
 

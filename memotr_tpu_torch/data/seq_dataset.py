@@ -3,14 +3,15 @@
 
 Sorted frame list per sequence; each frame is decoded, resized to short
 side ``image_height`` / long side at most ``image_width`` and placed on one
-fixed canvas per sequence orientation, returned as raw uint8 with its pad
-mask (ImageNet normalization runs on the device).  ``cv2`` is imported on
+fixed canvas per sequence orientation (``padded_canvas``, which
+``submit()`` groups sequences by), returned as raw uint8 with its pad mask
+(ImageNet normalization runs on the device).  ``cv2`` is imported on
 first use, so the rest of the port runs where it is not installed.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -31,6 +32,10 @@ class SeqDataset:
 
     def __len__(self) -> int:
         return len(self.image_paths)
+
+    def padded_canvas(self) -> Tuple[int, int]:
+        """(H, W) of the canvas every frame of the sequence is placed on."""
+        return self.canvas
 
     @staticmethod
     def load(path: str) -> np.ndarray:

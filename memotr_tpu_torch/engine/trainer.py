@@ -20,7 +20,8 @@
 
 ``Trainer`` is the entry: it takes a collated clip batch
 (``data/loader.collate_clips``), runs on the GPU unless asked for the CPU,
-and takes one optimizer step per ``ACCUMULATION_STEPS`` calls.  The JAX
+and takes one optimizer step per ``ACCUMULATION_STEPS`` micro-batches of
+an epoch, counting warmup per micro-batch as the JAX loop does.  The JAX
 package's ``lax.scan`` formulation of the clip loop (``TRAIN_FRAME_SCAN``)
 is not ported: the unrolled loop is the same computation.
 """
@@ -313,8 +314,12 @@ class Trainer:
         self.grad_step, self.apply_step = make_accum_steps(
             model, self.criterion, self.optimizer, self.config_static, clip,
             self.accumulation)
+        # counted as the JAX loop counts them (memotr_tpu/engine/train.py):
+        # ``global_iter`` once per micro-batch, ``micro_steps`` within the
+        # current ``epoch``
         self.micro_steps = 0
         self.global_iter = 0
+        self.epoch: Optional[int] = None
 
     def batch_to_device(self, batch: Dict[str, np.ndarray]
                         ) -> Dict[str, torch.Tensor]:
@@ -322,6 +327,8 @@ class Trainer:
                 for k in BATCH_KEYS}
 
     def lrs(self, epoch: int) -> Dict[str, float]:
+        """Each group's LR at the current micro-batch: the epoch's LR times
+        the warmup factor of ``global_iter``."""
         scale = warmup_scale(self.global_iter,
                              int(cfg_get(self.config, "WARMUP_ITERS")))
         return {k: v * scale for k, v in group_lrs(self.config,
@@ -329,18 +336,24 @@ class Trainer:
 
     def step(self, batch: Dict[str, np.ndarray], epoch: int = 0
              ) -> Dict[str, torch.Tensor]:
-        """One micro-batch; an optimizer step every ``ACCUMULATION_STEPS``
-        calls (``logs["grad_norm"]`` is present on those calls)."""
+        """One micro-batch; an optimizer step on every ``ACCUMULATION_STEPS``-th
+        micro-batch of an epoch (``logs["grad_norm"]`` is present on those
+        calls), at the LR of the micro-batch that applies it.  A new
+        ``epoch`` drops the gradients of the previous epoch's leftover
+        micro-batches and restarts the count."""
+        if epoch != self.epoch:
+            self.epoch = epoch
+            self.micro_steps = 0
+            self.optimizer.zero_grad(set_to_none=True)
         self.config_static["no_grad_frames"] = \
             no_grad_frames_for_epoch(self.config, epoch) or 0
         batch = self.batch_to_device(batch)
         if self.accumulation == 1:
             logs = self.train_step(batch, self.generator, self.lrs(epoch))
-            self.global_iter += 1
-            return logs
-        logs = self.grad_step(batch, self.generator)
-        self.micro_steps += 1
-        if self.micro_steps % self.accumulation == 0:
-            logs["grad_norm"] = self.apply_step(self.lrs(epoch))
-            self.global_iter += 1
+        else:
+            logs = self.grad_step(batch, self.generator)
+            self.micro_steps += 1
+            if self.micro_steps % self.accumulation == 0:
+                logs["grad_norm"] = self.apply_step(self.lrs(epoch))
+        self.global_iter += 1
         return logs

@@ -31,6 +31,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.misc import host_to_device
 from .windowed_encoder import WindowedEncoder
 
 
@@ -100,9 +101,9 @@ class EvalCache:
         m = self.model
         shapes = pyramid_shapes(img_mask.shape[1], img_mask.shape[2],
                                 m.n_feature_levels)
-        poss = [torch.from_numpy(np_sine_position_embedding(
-                    np_downsample_mask(img_mask, h, w), m.hidden_dim // 2)
-                ).to(self.device) for h, w in shapes]
+        poss = [host_to_device(np_sine_position_embedding(
+                    np_downsample_mask(img_mask, h, w), m.hidden_dim // 2),
+                    self.device) for h, w in shapes]
         enc = m.transformer.encoder
         tables = enc.bias_tables(shapes) \
             if isinstance(enc, WindowedEncoder) else None

@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from ..ops.msda import ms_deform_attn
+from ..utils.misc import host_to_device
 from .layers import Linear
 
 
@@ -69,8 +70,8 @@ class MSDeformAttn(nn.Module):
 
         ref = reference_points.float()
         if ref.shape[-1] == 2:
-            wh = torch.tensor([[w, h] for (h, w) in spatial_shapes],
-                              dtype=torch.float32, device=ref.device)
+            wh = host_to_device([[w, h] for (h, w) in spatial_shapes],
+                                ref.device, torch.float32)
             loc = ref[:, :, None, :, None, :] + \
                 offsets / wh[None, None, None, :, None, :]
         elif ref.shape[-1] == 4:

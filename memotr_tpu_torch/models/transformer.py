@@ -1,8 +1,8 @@
 """Deformable transformer: level flattening + encoder + decoder
 (counterpart of ``memotr_tpu/models/transformer.py``).  The encoder is the
-deformable one, the windowed one (``models/windowed_encoder.py``) or the
-hybrid one (``models/hybrid_encoder.py``); the conv encoder is a later
-slice of the port (ROADMAP.md)."""
+deformable one, the windowed one (``models/windowed_encoder.py``), the
+hybrid one (``models/hybrid_encoder.py``) or the conv one
+(``models/conv_encoder.py``)."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional
@@ -10,6 +10,7 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
+from .conv_encoder import ConvEncoder
 from .decoder import Decoder
 from .encoder import Encoder
 from .hybrid_encoder import HybridEncoder
@@ -59,10 +60,11 @@ class DeformableTransformer(nn.Module):
             self.encoder = HybridEncoder(n_enc_layers, d_model, d_ffn,
                                          n_heads, n_levels, n_enc_points,
                                          deform_min_level, **win_opts)
+        elif encoder_type == "conv":
+            self.encoder = ConvEncoder(n_enc_layers, d_model, d_ffn, n_levels,
+                                       use_bottomup, dtype)
         else:
-            raise NotImplementedError(
-                f"ENCODER_TYPE={encoder_type!r} is not ported to PyTorch yet "
-                "(ROADMAP.md, queue 1)")
+            raise ValueError(f"unknown ENCODER_TYPE {encoder_type!r}")
         self.decoder = Decoder(n_dec_layers, d_model, d_ffn, n_levels,
                                n_heads, n_dec_points, n_det_queries,
                                merge_det_track_layer, use_dab, dtype)

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.window_attn import grid_transpose, grid_untranspose, window_attention
+from ..utils.misc import host_to_device
 from .layers import LayerNorm, Linear, MultiheadAttention
 from .resnet import Conv2d
 
@@ -61,9 +62,9 @@ def cpb_bias(cpb1: nn.Linear, cpb2: nn.Linear, n_h: int, n_w: int,
     float32: an MLP over the log-scaled offsets, bounded by 16*sigmoid."""
     coords, index = relpos_table(n_h, n_w, scale)
     dev = cpb1.weight.device
-    table = cpb2(F.relu(cpb1(torch.from_numpy(coords).to(dev))))
+    table = cpb2(F.relu(cpb1(host_to_device(coords, dev))))
     table = 16.0 * torch.sigmoid(table)                     # (T, H)
-    bias = table[torch.from_numpy(index).to(dev)]           # (L, L, H)
+    bias = table[host_to_device(index, dev)]                # (L, L, H)
     return bias.permute(2, 0, 1).contiguous()
 
 

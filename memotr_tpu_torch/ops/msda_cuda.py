@@ -26,6 +26,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.misc import host_to_device
 from . import _build
 
 NAME = "msda_fwd"
@@ -56,7 +57,7 @@ def _shape_table(spatial_shapes: Sequence[Tuple[int, int]],
         for h, w in spatial_shapes:
             rows.append((h, w, start))
             start += h * w
-        tab = torch.tensor(rows, dtype=torch.int32, device=device)
+        tab = host_to_device(rows, device, torch.int32)
         _shape_tables[key] = tab
     return tab
 

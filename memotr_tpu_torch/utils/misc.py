@@ -6,6 +6,18 @@ import math
 import torch
 
 
+def host_to_device(array, device: torch.device | str,
+                   dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A host array (numpy, list or CPU tensor) on ``device`` without a
+    host sync: on CUDA it is copied into pinned memory and uploaded
+    ``non_blocking`` on the current stream (a pageable copy would wait for
+    the stream to drain); elsewhere a plain copy."""
+    t = torch.as_tensor(array, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Clamped logit, as in the reference (utils/utils.py:61-74)."""
     x = x.clamp(0.0, 1.0)

@@ -26,6 +26,7 @@ from memotr_tpu.models.query_updater import build_query_updater
 from memotr_tpu.structures.track_state import TrackState as JaxTrackState
 from memotr_tpu_torch.checkpoint.convert import state_dict_from_jax
 from memotr_tpu_torch.config import cfg_get
+from memotr_tpu_torch.engine.submit import check_options
 from memotr_tpu_torch.models.memotr import build_model
 
 HD = 64
@@ -168,11 +169,15 @@ def test_use_dab_default_is_shared():
 
 
 @pytest.mark.parametrize("override", [
-    {"ENCODER_TYPE": "conv"}, {"EXTRA_TRACK_ATTN": True}, {"DROPOUT": 0.1},
+    {"VISUALIZE": True}, {"EXTRA_TRACK_ATTN": True}, {"DROPOUT": 0.1},
     {"USE_CHECKPOINT": True}])
 def test_unported_options_raise(override):
+    """Each option the port lacks is refused, by ``build_model`` or by the
+    streaming entry points' ``check_options``."""
+    cfg = dict(TINY_CFG, **override)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dict(TINY_CFG, **override))
+        build_model(cfg)
+        check_options(cfg)
 
 
 @pytest.mark.parametrize("override", [

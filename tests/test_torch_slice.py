@@ -240,7 +240,8 @@ PORT_MODULES = [
         "models.runtime_tracker", "models.frame_step", "engine.submit",
         "data.seq_dataset", "checkpoint.convert", "utils.box_ops",
         "structures.padded_frame", "data.loader", "ops.hungarian",
-        "models.criterion", "models.track_selection", "engine.trainer")]
+        "models.criterion", "models.track_selection", "engine.trainer",
+        "models.motion", "models.conv_encoder")]
 
 
 def test_port_imports_no_jax():
