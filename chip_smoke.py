@@ -53,7 +53,9 @@ nonzero exit and no result line:
 11. K1 backward (csrc/msda_bwd.cu) vs autograd of the plain version at the
     training canvas's MSDA shapes (encoder B=1 Lq=28,560; decoder B=1 and
     B=2, Lq=364, out-of-bounds taps), float32 and bfloat16; device time of
-    the kernel and of the plain backward, and the bound;
+    the call, of each of its CUDA kernels pass by pass and of the plain
+    backward, the bound, its route (cell buckets) and its atomics (one
+    int32 atomicAdd a filed sample, no float atomic);
 12. deformable training (this slice's main path): the
     configs/train_dancetrack.yaml model in bfloat16 trains through the
     port's Trainer on synthetic 896x1536 clips (864x1536 valid) of 20
@@ -73,9 +75,11 @@ nonzero exit and no result line:
     window level 0 (its fully padded windows) and grid level 0 (L=312), and
     an awkward shape, float32 and bfloat16, every gradient compared; device
     time (at the training canvas's window level 0 and grid levels 0 and 3)
-    of the kernel alone, of the whole backward call (kernel and its
+    of the hand-written kernels (projections, attention core, bias
+    reduction: each pass), of the whole backward call (kernels and its
     matmuls), of the plain version's autograd and of the library
-    composition's autograd backward, and both bounds;
+    composition's autograd backward, both bounds, the route taken
+    (tensor_cores or tensor_cores_tiled) and its atomics (none);
 15. windowed training (this slice's main path): the
     configs/train_dancetrack_windowed.yaml model in bfloat16 through the
     Trainer on the phase-12 clips, 3 steps at T=2 and 1 at T=5; finite
@@ -92,7 +96,10 @@ nonzero exit and no result line:
 20. conv: configs/train_dancetrack.yaml with ENCODER_TYPE conv, 4 frames
     through both loops as in phase 5 (6 K1 launches a frame), then one T=2
     training step at 896x1536 (6 T K1 forward and backward launches);
-Phases run in the order 1-10, 18, 19, 11-17, 20; then a JSON line of
+21. one float32 hybrid training step (T=1, TF32 off) through the kernels
+    and through the plain K1 and K2, on ``scaled_weights_``, as phase 17
+    (the norms to WINDOWED_TRAIN_NORM_RTOL; five H100 runs read 5.6e-5);
+Phases run in the order 1-10, 18, 19, 11-17, 20, 21; then a JSON line of
 kernel results, the card's name and power limit and, last, the device line
 ``{"ok": true, "device": {...}}``.
 
@@ -142,8 +149,8 @@ K2_VS_F64 = 4.0
 # K1 backward against autograd of the plain version in float32 on the same
 # (bf16-rounded) inputs: every gradient within 1e-5 of its largest element
 # (float32 sums of up to 4 D corner products in another order; grad_value's
-# float32 atomics add in a run-dependent order), grad_value in bf16 also
-# rtol 8e-3 (one rounding of its float32 sum to bf16)
+# cell sums take their entries in a run-dependent order), grad_value in
+# bf16 also rtol 8e-3 (one rounding of its float32 sum to bf16)
 K1B_REL = 1e-5
 K1B_BF16_VALUE_RTOL = 8e-3
 # one float32 train step (T=1), kernels vs plain MSDA: float32 sums in
@@ -164,8 +171,7 @@ WINDOWED_TRAIN_NORM_RTOL = 5e-3
 # K2 backward against autograd of the plain version in float32 on the same
 # (bf16-rounded) inputs and cotangent, every gradient within a share of its
 # largest element.  Float32: sums over L keys, the map's tokens and C
-# channels in another order, the bias table's float32 atomics in a
-# run-dependent order.  bfloat16: the kernel path rounds Q, K, V, dO, the
+# channels in another order.  bfloat16: the kernel path rounds Q, K, V, dO, the
 # projection gradients dQ/dK/dV and g_x/g_pos to bf16 (2^-9 relative each),
 # and dS = P (dP - rowsum(P dP)) cancels, so a rounding of dP shows larger
 # in dS.
@@ -996,6 +1002,17 @@ def msda_bwd_bound(value, loc, aw):
     return bound(nbytes, b * lq * m * nl * p * d * 32, torch.float32)
 
 
+def msda_filed_samples(loc, shapes) -> int:
+    """Samples with a corner in the map (-1 < x W - 0.5 < W, and so for
+    y): those K1 backward files, one integer atomic each."""
+    n = 0
+    for lvl, (h, w) in enumerate(shapes):
+        px = loc[:, :, :, lvl, :, 0] * w - 0.5
+        py = loc[:, :, :, lvl, :, 1] * h - 0.5
+        n += int(((px > -1) & (py > -1) & (px < w) & (py < h)).sum())
+    return n
+
+
 def phase_k1_bwd(device):
     """K1 backward vs the plain version's autograd on the card; returns
     (max f32 error, times at the encoder shape)."""
@@ -1054,16 +1071,23 @@ def phase_k1_bwd(device):
         times[name] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
                            plain_device_ms=p_dev, bound_ms=b_ms,
                            bound_by=b_by, kernel_device_ms=kern)
-        scattered = b * lq * 8 * 16 * 4 * 32
+        filed = msda_filed_samples(loc, shapes)
         say("11 K1 bwd", f"{name} bf16, per call over 20: device "
-            f"{k_dev:.4f} ms (msda_bwd_kernel {kern:.4f}; the zeroed float32 "
-            f"scratch and the cast to bf16 the rest; event-timed call "
-            f"{k_ms:.4f} ms), plain autograd backward device {p_dev:.4f} ms "
-            f"(call {p_ms:.4f}), bound {b_ms:.4f} ms ({b_by}); at most "
-            f"{scattered / 1e6:.1f} M float32 atomic adds, "
-            f"{scattered / kern / 1e6:.2f} G/s of kernel time")
-        say("11 K1 bwd", f"{name} bf16 device time by CUDA kernel: " + ", ".join(
-            f"{kernel_name(k)} {ms:.4f} ms" for k, (ms, _) in parts.items()))
+            f"{k_dev:.4f} ms (its msda_bwd kernels {kern:.4f}; event-timed "
+            f"call {k_ms:.4f} ms), plain autograd backward device "
+            f"{p_dev:.4f} ms (call {p_ms:.4f}), bound {b_ms:.4f} ms "
+            f"({b_by}); route: cell buckets (grad_value gathered by row, "
+            f"no buffer zeroed, no cast); atomics: {filed / 1e6:.3f} M int32 "
+            f"atomicAdd (one a sample with a corner in the map, "
+            f"msda_bwd_count_kernel), no float atomic")
+        order = ("sample", "count", "scan_tiles", "scan_totals", "fill",
+                 "cell", "row")
+        step = {kernel_name(k): ms for k, (ms, _) in parts.items()}
+        say("11 K1 bwd", f"{name} bf16 device time pass by pass: " + ", ".join(
+            f"{k} {ms:.4f} ms" for k, ms in sorted(
+                step.items(), key=lambda kv: next(
+                    (i for i, o in enumerate(order)
+                     if f"msda_bwd_{o}_kernel" in kv[0]), len(order)))))
     return worst, times
 
 
@@ -1095,12 +1119,15 @@ def k2_grads(fn, leaves, mask, geo, g):
 
 
 def k2_bwd_bound(args, geo, whole: bool):
-    """The least time of K2's backward.  Kernel alone: Q, K, V and dO read,
-    dQ, dK, dV written (in the activation dtype), the mask, the bias table
-    read and its gradient written; the five attention products, 10 L C
-    flops a token.  Whole call: x, pos and the cotangent read, g_x and g_pos
-    written, the weights read and their gradients written; the attention
-    products and the VJP's projection products (16 C^2 flops a token)."""
+    """The least time of K2's backward.  Its hand-written kernels: x, pos
+    and the cotangent read, dQ, dK, dV written (in the activation dtype),
+    the mask, the weights (in the activation dtype) and the bias table read
+    and its gradient written; the four projections Q, K, V, dO (8 C^2 flops
+    a token) and the five attention products (10 L C).  Whole call: x, pos
+    and the cotangent read, g_x and g_pos written, the float32 weights read
+    and their gradients written; the attention products and the VJP's
+    projection products (16 C^2 flops a token: the four projections and
+    the four gradient products)."""
     x, bias = args[0], args[7]
     c = x.shape[3]
     n, l, es = x.numel() // c, geo[1] * geo[2], x.element_size()
@@ -1110,7 +1137,8 @@ def k2_bwd_bound(args, geo, whole: bool):
         nbytes = 5 * n * c * es + n + 2 * (4 * c * c + 4 * c) * 4 + table
         flops += 16 * n * c * c
     else:
-        nbytes = 7 * n * c * es + n + table
+        nbytes = 6 * n * c * es + n + (4 * c * c + 3 * c) * es + table
+        flops += 8 * n * c * c
     return bound(nbytes, flops, x.dtype)
 
 
@@ -1172,11 +1200,13 @@ def phase_k2_bwd(device):
                         device=device).to(torch.bfloat16)
         with torch.no_grad():
             _, o = wac.window_attention_fwd(*args, *geo)
-        tc_before = wac.bwd_routes["tensor_cores"]
+        routes_before = dict(wac.bwd_routes)
         k_ms, k_dev, parts = timed(
             lambda: wac.window_attention_bwd(g, *args, o, *geo))
-        assert wac.bwd_routes["tensor_cores"] > tc_before, \
-            f"{name}: bf16 at head dim 32 did not take the tensor-core route"
+        route = [r for r, n in wac.bwd_routes.items()
+                 if n > routes_before[r]]
+        assert route and route[0].startswith("tensor_cores"), \
+            f"{name}: bf16 at head dim 32 took the {route} route"
         kern = sum(ms for k, (ms, _) in parts.items() if "attn_bwd" in k)
         assert kern > 0, "no attn_bwd kernel in the profile"
         leaves = k2_leaves(args)
@@ -1197,15 +1227,20 @@ def phase_k2_bwd(device):
                            library_ms=l_ms, library_device_ms=l_dev,
                            bound_ms=b_ms, bound_by=b_by,
                            kernel_bound_ms=kb_ms, kernel_bound_by=kb_by)
-        say("14 K2 bwd", f"{name} 896x1536 bf16 (tensor-core route), per "
-            f"call over 20: whole backward device {k_dev:.4f} ms (kernel "
-            f"{kern:.4f}; "
+        say("14 K2 bwd", f"{name} 896x1536 bf16 (route {route[0]}: "
+            f"Q/K/V/dO projected in the call, bias table in shared memory; "
+            f"atomics: none, the bias gradient summed per block and its "
+            f"partial tables in a fixed order), per "
+            f"call over 20: whole backward device {k_dev:.4f} ms (its "
+            f"hand-written kernels {kern:.4f}; "
             f"event-timed call {k_ms:.4f}), plain autograd backward device "
             f"{p_dev:.4f} ms (call {p_ms:.4f}), library composition's "
             f"autograd backward device {l_dev:.4f} ms (call {l_ms:.4f}); "
             f"bound whole {b_ms:.4f} ms ({b_by}), kernel {kb_ms:.4f} ms "
             f"({kb_by}): kernel at {kb_ms / kern:.1%} of its bound")
-        say("14 K2 bwd", f"{name} bf16 device time by CUDA kernel: "
+        say("14 K2 bwd", f"{name} bf16 device time by CUDA kernel (each "
+            "pass of the call; the torch.matmul products, sums and copies "
+            "around it): "
             + ", ".join(f"{kernel_name(k)} {ms:.4f} ms ({n})"
                         for k, (ms, n) in sorted(parts.items(),
                                                  key=lambda kv: -kv[1][0])))
@@ -1687,6 +1722,11 @@ def main() -> int:
          "window_attn_bwd": 0}, unreached=("transformer.level_embed",))
     del trainer
     say("20 conv", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_train_f32(scaled_weights_(build_model(HYBRID_TRAIN_CONFIG)),
+                    device, "21 hybrid train f32", HYBRID_TRAIN_CONFIG,
+                    WINDOWED_TRAIN_NORM_RTOL)
+    say("21 hybrid train f32", f"done in {time.perf_counter() - t0:.1f} s")
     say("all", f"{time.perf_counter() - t_all:.1f} s")
 
     k1, k2 = k1_times["encoder"], k2_times["window_l0"]

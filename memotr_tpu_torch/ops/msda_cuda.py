@@ -41,10 +41,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # value, shape table, loc, aw, out; dtype, B, S, Lq, M, D, L, P; stream
 _ARGTYPES = {"msda_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
              + [ctypes.c_void_p]}
-# value, shape table, loc, aw, grad_out, grad_value (f32), grad_loc,
-# grad_aw; dtype, B, S, Lq, M, D, L, P; stream
-_BWD_ARGTYPES = {"msda_bwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                 + [ctypes.c_void_p]}
+# value, shape table, loc, aw, grad_out, grad_value, grad_loc, grad_aw,
+# workspace; its int32 count; dtype, B, S, Lq, M, D, L, P, cells; stream
+_BWD_ARGTYPES = {"msda_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_longlong]
+                 + [ctypes.c_int] * 9 + [ctypes.c_void_p]}
+# (cell, head) buckets a tile of the backward's scan (SCAN_TILE in msda_bwd.cu)
+SCAN_TILE = 4096
 
 
 def _shape_table(spatial_shapes: Sequence[Tuple[int, int]],
@@ -60,6 +62,23 @@ def _shape_table(spatial_shapes: Sequence[Tuple[int, int]],
         tab = host_to_device(rows, device, torch.int32)
         _shape_tables[key] = tab
     return tab
+
+
+def cell_count(spatial_shapes: Sequence[Tuple[int, int]]) -> int:
+    """The bilinear cells of the levels, (H+1)(W+1) a level: a sample's
+    four corners are the corners of one cell (x0, y0 in [-1, size - 1])."""
+    return sum((h + 1) * (w + 1) for h, w in spatial_shapes)
+
+
+def msda_bwd_workspace(b: int, lq: int, m: int, d: int, n_points: int,
+                       spatial_shapes: Sequence[Tuple[int, int]]) -> int:
+    """int32 elements of the backward kernel's workspace: per sample its
+    16-byte entry and its slot; per (batch, cell, head) bucket its four
+    corners' float32 sums (4 d), a count and an offset; per SCAN_TILE
+    buckets a tile total."""
+    samples = b * lq * m * len(spatial_shapes) * n_points
+    buckets = b * cell_count(spatial_shapes) * m
+    return 5 * samples + (4 * d + 2) * buckets + -(-buckets // SCAN_TILE)
 
 
 def _check(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
@@ -129,8 +148,8 @@ def msda_backward(value: torch.Tensor,
                   grad_out: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernel -> (grad_value in the value dtype,
-    grad_loc, grad_aw float32).  grad_value is summed by float32 atomics
-    into a zeroed float32 buffer, then cast."""
+    grad_loc, grad_aw float32).  Every element of the three is written by
+    the kernel (grad_value without float atomics: ``csrc/msda_bwd.cu``)."""
     global bwd_launches
     _check(value, spatial_shapes, loc, aw)
     b, s, m, d = value.shape
@@ -145,19 +164,21 @@ def msda_backward(value: torch.Tensor,
         g = g.clone()
     lib = _build.load(BWD_NAME, _BWD_ARGTYPES)
     table = _shape_table(spatial_shapes, value.device)
-    grad_value = torch.zeros((b, s, m, d), dtype=torch.float32,
-                             device=value.device)
+    grad_value = torch.empty_like(value)
     grad_loc = torch.empty_like(loc)
     grad_aw = torch.empty_like(aw)
+    n_ws = msda_bwd_workspace(b, lq, m, d, p, spatial_shapes)
+    ws = torch.empty(n_ws, dtype=torch.int32, device=value.device)
     stream = torch.cuda.current_stream(value.device).cuda_stream
     rc = lib.msda_bwd(value.data_ptr(), table.data_ptr(), loc.data_ptr(),
                       aw.data_ptr(), g.data_ptr(), grad_value.data_ptr(),
-                      grad_loc.data_ptr(), grad_aw.data_ptr(),
-                      _DTYPES[value.dtype], b, s, lq, m, d, nl, p, stream)
+                      grad_loc.data_ptr(), grad_aw.data_ptr(), ws.data_ptr(),
+                      n_ws, _DTYPES[value.dtype], b, s, lq, m, d, nl, p,
+                      cell_count(spatial_shapes), stream)
     if rc != 0:
         raise RuntimeError(f"msda_bwd launch failed: CUDA error {rc}")
     bwd_launches += 1
-    return grad_value.to(value.dtype), grad_loc, grad_aw
+    return grad_value, grad_loc, grad_aw
 
 
 class MSDeformAttnFunction(torch.autograd.Function):

@@ -23,8 +23,12 @@ launch), and nothing else.  ``routes`` counts the forward calls by route:
 one CUDA kernel, the output projection in a second; no Q/K/V in device
 memory) or ``"cuda_cores"`` (float32, and bf16 shapes the fused route does
 not take: three CUDA kernels through a Q/K/V scratch).  ``bwd_routes``
-counts the backward calls by route: ``"tensor_cores"`` (bfloat16, head dim
-16, 32 or 64) or ``"cuda_cores"`` (float32 and the other shapes).
+counts the backward calls by the route of their attention core:
+``"tensor_cores"`` (bfloat16, head dim 16, 32 or 64, a block per head over
+whole groups: the windows and the smaller grid groups),
+``"tensor_cores_tiled"`` (the same dtypes, larger groups: a rows kernel and
+a keys kernel over tiles of a group) or ``"cuda_cores"`` (float32 and the
+other shapes).
 """
 from __future__ import annotations
 
@@ -42,19 +46,22 @@ BWD_NAME = "window_attn_bwd"
 launches = 0
 bwd_launches = 0
 routes = {"fused": 0, "cuda_cores": 0}
-bwd_routes = {"tensor_cores": 0, "cuda_cores": 0}
+bwd_routes = {"tensor_cores": 0, "tensor_cores_tiled": 0, "cuda_cores": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # x, pos, mask, w_in, b_in, w_out, b_out, bias, qkv, o, out; dtype, B, Hp,
 # Wp, C, heads, wh, ww; stream.  window_attn_fused: dtype, C, heads, L, bias
 _ARGTYPES = {"window_attn_fwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
              + [ctypes.c_void_p],
              "window_attn_fused": [ctypes.c_int] * 5}
-# qk, v, d_o, mask, bias, dqkv, dbias; dtype, B, Hp, Wp, C, heads, wh, ww;
-# stream.  window_attn_bwd_route: dtype, C, heads, L, bias
-_BWD_ARGTYPES = {"window_attn_bwd": [ctypes.c_void_p] * 7
+# x, pos, gy, mask, w_in, b_in, w_out, bias, proj, wmask, fws, dqkv,
+# g_bias; dtype, B, Hp, Wp, C, heads, wh, ww; stream.
+# window_attn_bwd_plan: dtype, B, Hp, Wp, C, heads, wh, ww, bias; out (2
+# long long)
+_BWD_ARGTYPES = {"window_attn_bwd": [ctypes.c_void_p] * 13
                  + [ctypes.c_int] * 8 + [ctypes.c_void_p],
-                 "window_attn_bwd_route": [ctypes.c_int] * 5}
-_BWD_ROUTES = {1: "cuda_cores", 2: "tensor_cores"}
+                 "window_attn_bwd_plan": [ctypes.c_int] * 9
+                 + [ctypes.POINTER(ctypes.c_longlong)]}
+_BWD_ROUTES = {1: "cuda_cores", 2: "tensor_cores", 3: "tensor_cores_tiled"}
 
 
 def _check(x: torch.Tensor, pos: torch.Tensor, mask: torch.Tensor,
@@ -155,27 +162,23 @@ def _merge(o: torch.Tensor, b: int, h: int, w: int, wh: int,
         0, 1, 3, 2, 4, 5).reshape(b * h * w, c)
 
 
-def _attention_core_bwd(lib, qk, v, d_o, mask, bias, shape, n_heads,
-                        window_h, window_w):
-    """Launch the backward kernel -> (dqkv (B*H*W, 3C): [dQ dK dV] of the
-    projection outputs in pixel order, g_bias (heads, L, L) float32 summed
-    by float32 atomics into a zeroed table, or None)."""
-    b, h, w, c = shape
-    l = window_h * window_w
-    dqkv = torch.empty((b * h * w, 3 * c), dtype=qk.dtype, device=qk.device)
-    g_bias = torch.zeros((n_heads, l, l), dtype=torch.float32,
-                         device=qk.device) if bias is not None else None
-    stream = torch.cuda.current_stream(qk.device).cuda_stream
-    rc = lib.window_attn_bwd(
-        qk.data_ptr(), v.data_ptr(), d_o.data_ptr(), mask.data_ptr(),
-        bias.data_ptr() if bias is not None else None, dqkv.data_ptr(),
-        g_bias.data_ptr() if g_bias is not None else None,
-        _DTYPES[qk.dtype], b, h, w, c, n_heads, window_h, window_w, stream)
-    if rc != 0:
-        raise RuntimeError(f"window_attn_bwd launch failed: CUDA error {rc} "
-                           f"(window {window_h}x{window_w}, C={c}, "
-                           f"{n_heads} heads)")
-    return dqkv, g_bias
+def bwd_scratch(n_partials: int, n_stats: int, n_tokens: int, c: int,
+                n_heads: int, l: int) -> dict:
+    """Shapes of the backward kernel's scratch from its plan
+    (``window_attn_bwd_plan``): ``proj``, Q, K, V and dO of every token in
+    window order (4, heads, tokens, head dim), in the activation dtype;
+    ``wmask``, the key flags in window order (tokens,) bytes; ``fws``,
+    float32, the ``n_partials`` partial bias tables (heads, L, L) and then
+    ``n_stats`` row statistics."""
+    return {"proj": (4, n_heads, n_tokens, c // n_heads),
+            "wmask": (n_tokens,),
+            "fws": (n_partials * n_heads * l * l + n_stats,)}
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous, its data 16-byte aligned (the kernels' loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def window_attention_bwd(grad_out: torch.Tensor, x: torch.Tensor,
@@ -189,14 +192,15 @@ def window_attention_bwd(grad_out: torch.Tensor, x: torch.Tensor,
     g_in_proj_weight, g_in_proj_bias, g_out_weight, g_out_bias, g_bias
     (None without bias) in float32).
 
-    The projection products are ``torch.matmul`` in the activation dtype
-    (float32 accumulation), as autograd of the plain version does them:
-    dO = gy Wo, the output projection's gradients from the head outputs
-    ``o`` of the forward, Q, K and V recomputed from x + pos and x into a
-    scratch, then the kernel (``csrc/window_attn_bwd.cu``: the attention
-    core and the bias gradient), then the input projection's gradients and
-    g_qin = [dQ dK] [Wq; Wk], g_vin = dV Wv, g_pos = g_qin and g_x = g_qin
-    + g_vin."""
+    The kernel (``csrc/window_attn_bwd.cu``) computes Q, K, V and dO from
+    x + pos, x and the cotangent itself, then the attention core and the
+    bias gradient.  The products that reduce over every token stay
+    ``torch.matmul`` in the activation dtype (float32 accumulation), as
+    autograd of the plain version does them: the output projection's
+    gradients from the head outputs ``o`` of the forward, the input
+    projection's from [dQ dK dV], the bias gradients (a row of ones times
+    the cotangent or [dQ dK dV]), and g_qin = [dQ dK] [Wq; Wk], g_vin =
+    dV Wv, g_pos = g_qin and g_x = g_qin + g_vin."""
     global bwd_launches
     _check(x, pos, mask, in_proj_weight, in_proj_bias, out_weight, out_bias,
            bias, n_heads, window_h, window_w)
@@ -210,32 +214,54 @@ def window_attention_bwd(grad_out: torch.Tensor, x: torch.Tensor,
     if tuple(o.shape) != (n, c) or o.dtype != dt or not o.is_contiguous():
         raise ValueError(f"head outputs must be contiguous ({n}, {c}) {dt}")
     lib = _build.load(BWD_NAME, _BWD_ARGTYPES)
-    route = lib.window_attn_bwd_route(_DTYPES[dt], c, n_heads, l,
-                                      int(bias is not None))
+    plan = (ctypes.c_longlong * 2)()
+    route = lib.window_attn_bwd_plan(_DTYPES[dt], b, h, w, c, n_heads,
+                                     window_h, window_w,
+                                     int(bias is not None), plan)
     if route not in _BWD_ROUTES:
         raise ValueError(f"window-attention backward kernel does not take "
                          f"L={l} at head dim {c // n_heads} (its block "
                          "would exceed the card's shared memory)")
-    gy = grad_out.to(dt).contiguous().view(n, c)
-    w_in, w_out = in_proj_weight.to(dt), out_weight.to(dt)
-    b_in = in_proj_bias.to(dt)
-    q_in = (x + pos).view(n, c)
-    x2 = x.view(n, c)
-    qk = torch.addmm(b_in[:2 * c], q_in, w_in[:2 * c].t())
-    v = torch.addmm(b_in[2 * c:], x2, w_in[2 * c:].t())
-    d_o = torch.matmul(gy, w_out)
-    dqkv, g_bias = _attention_core_bwd(lib, qk, v, d_o, mask, bias, x.shape,
-                                       n_heads, window_h, window_w)
+    shapes = bwd_scratch(plan[0], plan[1], n, c, n_heads, l)
+    gy = _aligned(grad_out.to(dt))
+    x, pos = _aligned(x), _aligned(pos)
+    w_in, w_out = _aligned(in_proj_weight.to(dt)), _aligned(out_weight.to(dt))
+    b_in = in_proj_bias.to(dt).contiguous()
+    proj = torch.empty(shapes["proj"], dtype=dt, device=x.device)
+    wmask = torch.empty(shapes["wmask"], dtype=torch.uint8, device=x.device)
+    fws = torch.empty(shapes["fws"], dtype=torch.float32, device=x.device)
+    dqkv = torch.empty((n, 3 * c), dtype=dt, device=x.device)
+    g_bias = torch.empty((n_heads, l, l), dtype=torch.float32,
+                         device=x.device) if bias is not None else None
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.window_attn_bwd(
+        x.data_ptr(), pos.data_ptr(), gy.data_ptr(), mask.data_ptr(),
+        w_in.data_ptr(), b_in.data_ptr(), w_out.data_ptr(),
+        bias.data_ptr() if bias is not None else None, proj.data_ptr(),
+        wmask.data_ptr(), fws.data_ptr(), dqkv.data_ptr(),
+        g_bias.data_ptr() if g_bias is not None else None, _DTYPES[dt], b, h,
+        w, c, n_heads, window_h, window_w, stream)
+    if rc != 0:
+        raise RuntimeError(f"window_attn_bwd launch failed: CUDA error {rc} "
+                           f"(window {window_h}x{window_w}, C={c}, "
+                           f"{n_heads} heads)")
     bwd_launches += 1
     bwd_routes[_BWD_ROUTES[route]] += 1
+    gy = gy.view(n, c)
+    q_in = (x + pos).view(n, c)
+    # the bias gradients as products with a row of ones: sums over every
+    # token in float32 on the tensor cores, rounded to the activation dtype
+    # as autograd of the plain version rounds them
+    ones = torch.ones((1, n), dtype=dt, device=x.device)
     g_out_w = torch.matmul(gy.t(), _merge(o, b, h, w, window_h,
                                           window_w)).float()
-    g_out_b = gy.sum(0, dtype=torch.float32)
+    g_out_b = torch.matmul(ones, gy).view(c).float()
     g_in_w = torch.cat([torch.matmul(dqkv[:, :2 * c].t(), q_in),
-                        torch.matmul(dqkv[:, 2 * c:].t(), x2)]).float()
-    g_in_b = dqkv.sum(0, dtype=torch.float32)
+                        torch.matmul(dqkv[:, 2 * c:].t(), x.view(n, c))]
+                       ).float()
+    g_in_b = torch.matmul(ones, dqkv).view(3 * c).float()
     g_qin = torch.matmul(dqkv[:, :2 * c], w_in[:2 * c])
-    g_x = g_qin + torch.matmul(dqkv[:, 2 * c:], w_in[2 * c:])
+    g_x = torch.addmm(g_qin, dqkv[:, 2 * c:], w_in[2 * c:])
     return (g_x.view(b, h, w, c), g_qin.view(b, h, w, c), g_in_w, g_in_b,
             g_out_w, g_out_b, g_bias)
 

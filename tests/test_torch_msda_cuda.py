@@ -11,10 +11,11 @@ the plain version in float32 on the same bf16-rounded inputs, atol 2e-2.
 Backward: against autograd of the plain version in float32 on the same
 (bf16-rounded) inputs and cotangent.  grad_loc and grad_aw within 1e-5 of
 their largest element (float32 sums of up to 4 D corner products in
-another order); grad_value the same in float32, where its float32 atomics
-add in a run-dependent order, and rtol 8e-3 in bfloat16 (one rounding of
-the float32 sum to bf16, 2^-8 relative).  The plain backward is checked
-against finite differences and JAX on CPU (test_torch_train_msda_grad.py).
+another order); grad_value the same in float32 (summed by bilinear cell in
+float32, in an order that depends on the run), and rtol 8e-3 in bfloat16
+(one rounding of the float32 sum to bf16, 2^-8 relative).  The plain
+backward is checked against finite differences and JAX on CPU
+(test_torch_train_msda_grad.py).
 """
 import numpy as np
 import pytest
@@ -229,3 +230,81 @@ def test_tiny_train_step_on_gpu_matches_cpu(cuda):
                                    rtol=1e-4, err_msg=key)
     np.testing.assert_allclose(float(out["grad_norm"]),
                                float(ref["grad_norm"]), rtol=1e-3)
+
+
+def _check_backward(cuda, shapes, v, loc, aw, seed=1):
+    """The kernel's three gradients against plain autograd (the tolerances
+    of test_backward_matches_plain_autograd)."""
+    b, lq, m = loc.shape[:3]
+    g = torch.randn((b, lq, m * v.shape[3]), generator=torch.Generator(
+        cuda).manual_seed(seed), device=cuda).to(v.dtype)
+    got = msda_cuda.msda_backward(v, shapes, loc, aw, g)
+    torch.cuda.synchronize()
+    want = _grads(lambda *a: ms_deform_attn_torch(a[0], shapes, *a[1:]),
+                  v.float(), loc, aw, g.float())
+    for name, x, y in zip(("value", "loc", "aw"), got, want):
+        assert torch.isfinite(x).all(), name
+        scale = y.abs().max().item()
+        rtol = 8e-3 if (name == "value" and v.dtype == torch.bfloat16) else 0
+        torch.testing.assert_close(x.float(), y, rtol=rtol,
+                                   atol=1e-5 * scale + 1e-7, msg=name)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 2])
+def test_backward_every_sample_in_one_bucket(cuda, b, dtype):
+    """Every location at one point: each level's samples of a head all land
+    in one bilinear cell, the longest bucket the value rows gather from (at
+    B=2 a batch's buckets stay its own)."""
+    case = dict(CASES["decoder_b2_main"], b=b)
+    shapes = case["shapes"]
+    v, loc, aw = _inputs(cuda, dtype, **case)
+    # 0.3712 x size - 0.5 has a nonzero fraction at every level, so all
+    # four corners of each cell get a weight
+    loc = torch.full_like(loc, 0.3712)
+    grads = _check_backward(cuda, shapes, v, loc, aw)
+    # only the 4 corner rows of each level get a gradient
+    rows = (grads[0].float().abs().sum((2, 3)) > 0).sum(1)
+    assert rows.tolist() == [4 * len(shapes)] * b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 2])
+def test_backward_at_map_edges_and_outside(cuda, b, dtype):
+    """Locations on the maps' edges (corner rows at the first and last row
+    and column of every level, beside the next level's rows), on whole
+    pixels (fractions 0), just inside and just outside the map."""
+    case = CASES["decoder_b2_main"]
+    shapes = case["shapes"]
+    v, loc, aw = _inputs(cuda, dtype, **dict(case, b=b))
+    rng = np.random.default_rng(5)
+    w_min = min(w for _, w in shapes)
+    picks = np.asarray([0.0, 1.0, 0.5 / w_min, 1 - 0.5 / w_min, -0.49 / w_min,
+                        1 + 0.49 / w_min, -0.51 / w_min * 2, 1.5, 0.5],
+                       np.float32)
+    loc = torch.from_numpy(rng.choice(picks, size=tuple(loc.shape))).to(cuda)
+    # on whole pixels of each level: x W - 0.5 an integer
+    for l, (h, w) in enumerate(shapes):
+        loc[:, :8, :, l, :, 0] = (torch.arange(8, device=cuda)[:, None, None]
+                                  % w + 0.5) / w
+        loc[:, :8, :, l, :, 1] = (h - 0.5) / h
+    _check_backward(cuda, shapes, v, loc, aw)
+
+
+def test_backward_routes_decoder_and_encoder_sizes(cuda):
+    """The decoder's size (samples split over lanes) and an encoder-like
+    size (one (b, q, m) a group) at B=2, bf16: every value row written (no
+    stale workspace from the call before), the same result twice up to the
+    order of float32 sums."""
+    for lq in (364, 4000):
+        case = dict(CASES["decoder_b2_main"], lq=lq)
+        shapes = case["shapes"]
+        v, loc, aw = _inputs(cuda, torch.bfloat16, **case)
+        first = _check_backward(cuda, shapes, v, loc, aw, seed=3)
+        again = _check_backward(cuda, shapes, v, loc, aw, seed=3)
+        scale = first[0].float().abs().max().item()
+        torch.testing.assert_close(first[0].float(), again[0].float(),
+                                   atol=1e-5 * scale, rtol=8e-3)
+        assert torch.equal(first[1], again[1]) and torch.equal(first[2],
+                                                               again[2])
