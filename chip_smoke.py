@@ -99,8 +99,32 @@ nonzero exit and no result line:
 21. one float32 hybrid training step (T=1, TF32 off) through the kernels
     and through the plain K1 and K2, on ``scaled_weights_``, as phase 17
     (the norms to WINDOWED_TRAIN_NORM_RTOL; five H100 runs read 5.6e-5);
-Phases run in the order 1-10, 18, 19, 11-17, 20, 21; then a JSON line of
-kernel results, the card's name and power limit and, last, the device line
+22. the training entry (``memotr_tpu_torch.main``, as a user runs it) on a
+    synthetic DanceTrack tree of 1920x1080 JPEGs (2 train videos of 6
+    frames, 1 val video of 6) with a reference-format .pth of
+    ``random_weights_`` as PRETRAINED_MODEL: configs/train_dancetrack.yaml
+    (full width, bfloat16, NUM_WORKERS 4, the MOTR_SCALES transforms) with
+    SAMPLE_STEPS [1, 10, 14], 2 epochs (10 steps at T=2, 8 at T=3), 12 T K1
+    forward and backward launches every step; finite losses in
+    scalars.jsonl, both epoch checkpoints, trainable parameters moved and
+    frozen ones not; host ms per iteration, the loader's wait and its
+    share, peak memory, a profiled iteration's idle share; then resume
+    from checkpoint_0.pth twice (epoch 1 only: the same states, the first
+    iteration's losses equal the unbroken run's, the AdamW state at its
+    start checkpoint_0's bit for bit and after its first step the unbroken
+    run's, exp_avg_sq sums within RESUME_V_RTOL, the step counts after the
+    epoch equal, parameters within RESUME_STEP_BOUND x LR a step; the
+    second resumed run against the first printed as the noise witness),
+    ClipDataset.get
+    timed clip by clip on one host thread (the Data layer), submit of the
+    val split from checkpoint_1.pth (MOT lines written; the decode path
+    named), and the
+    windowed flagship (configs/train_dancetrack_windowed.yaml, one 5-frame
+    video, 4 steps) through the same entry: 12 T K2 and 6 T K1 launches,
+    forward and backward, every step;
+Phases run in the order 1-10, 18, 19, 11-17, 20, 21, 22; then a JSON line
+of the training entry's numbers, a JSON line of kernel results, the card's
+name and power limit and, last, the device line
 ``{"ok": true, "device": {...}}``.
 
 There is no CPU path: without a CUDA device the script exits nonzero.
@@ -1596,6 +1620,468 @@ def phase_motion(device, tag="19 motion"):
     return counts
 
 
+# ------------------------------------------------------------ train entry
+# phase 22: the port's training entry (memotr_tpu_torch.main --mode train)
+# at the full width of configs/train_dancetrack.yaml, on a synthetic
+# DanceTrack tree of 1920x1080 JPEGs.  SAMPLE_STEPS is the file's but for
+# its first stage, which ends after epoch 0 so that epoch 1 takes clips of
+# SAMPLE_LENGTHS[1] = 3 frames.
+ENTRY_YAML = "configs/train_dancetrack.yaml"
+ENTRY_WINDOWED_YAML = "configs/train_dancetrack_windowed.yaml"
+ENTRY_HW = (1080, 1920)
+ENTRY_VIDEOS = {"train": (("dancetrack0001", 6), ("dancetrack0002", 6)),
+                "val": (("dancetrack0009", 6),)}
+ENTRY_WINDOWED_VIDEOS = {"train": (("dancetrack0003", 5),)}
+ENTRY_SAMPLE_STEPS = [1, 10, 14]
+ENTRY_EPOCHS = 2
+# submit thresholds: low enough that the seeded weights, trained 18 steps,
+# keep detections
+ENTRY_THRESH = 0.1
+# resume vs the unbroken run.  The resumed epoch's first iteration sees the
+# same weights, optimizer state, generators and batch, so its losses equal
+# the unbroken run's (forward: no atomics; float32 sums of a bf16 model in
+# one order, to TRAIN_LOSS_RTOL).  After that the bf16 gradients differ in
+# their last bits (K1 backward's cell sums and cuDNN's weight gradients
+# take their terms in a run-dependent order), and Adam, which steps each
+# element by about lr whatever its gradient's size, turns rounding-sized
+# gradients into lr-sized steps of either sign, so the parameters are held
+# only to 2 x LR x steps and a second resumed run is printed beside the
+# first as the noise witness (an H100 read 0.436 of epoch 1's update in L2
+# between two resumed runs, 0.364 against the unbroken one).  The restored
+# optimizer state is held directly: at the resumed epoch's start it is
+# checkpoint_0's bit for bit, and after its first step each parameter's
+# exp_avg_sq sum is within RESUME_V_RTOL (bf16's 2^-8) of the unbroken
+# run's after the same step, where a resume that dropped the moments would
+# read about 1/11 of it.  After the epoch the sums are only printed: the
+# same H100 read up to 0.65 apart, since matching and Adam's steps diverge.
+RESUME_STEP_BOUND = 2
+RESUME_V_RTOL = 2 ** -8
+
+
+def write_tree(root: str, videos, seed: int, hw=ENTRY_HW) -> None:
+    """A DanceTrack tree: per split, videos of n JPEG frames of 12 textured
+    blocks moving over a textured background, and their gt.txt."""
+    import cv2
+    h, w = hw
+    for split, vids in videos.items():
+        for k, (name, n) in enumerate(vids):
+            rng = np.random.default_rng(seed + k + 10 * len(split))
+            n_obj = 12
+            bg = rng.integers(40, 140, (h, w, 3), np.uint8)
+            size = rng.uniform([0.04, 0.14], [0.13, 0.42], (n_obj, 2)) * [w, h]
+            pos = rng.uniform(0, 1, (n_obj, 2)) * ([w, h] - size)
+            vel = rng.uniform(-30, 30, (n_obj, 2))
+            tex = [rng.integers(100, 255, (int(sh), int(sw), 3), np.uint8)
+                   for sw, sh in size]
+            vdir = os.path.join(root, "DanceTrack", split, name)
+            os.makedirs(os.path.join(vdir, "img1"))
+            os.makedirs(os.path.join(vdir, "gt"))
+            lines = []
+            for t in range(1, n + 1):
+                img = bg.copy()
+                for i in range(n_obj):
+                    x, y = pos[i].astype(int)
+                    th, tw = tex[i].shape[:2]
+                    img[y:y + th, x:x + tw] = tex[i]
+                    lines.append(f"{t},{i + 1},{x},{y},{tw},{th},1,1,1\n")
+                assert cv2.imwrite(os.path.join(vdir, "img1", f"{t:08d}.jpg"),
+                                   img)
+                pos = np.clip(pos + vel, 0, [w, h] - size)
+                vel[(pos <= 0) | (pos >= [w, h] - size)] *= -1
+            with open(os.path.join(vdir, "gt", "gt.txt"), "w") as f:
+                f.writelines(lines)
+
+
+def entry_yaml(src: str, path: str) -> None:
+    """``src`` with phase 22's SAMPLE_STEPS, written to ``path``."""
+    from memotr_tpu_torch.config import dict_to_yaml, yaml_to_dict
+    cfg = yaml_to_dict(src)
+    cfg["SAMPLE_STEPS"] = ENTRY_SAMPLE_STEPS
+    dict_to_yaml(cfg, path)
+
+
+def adam_state(optimizer) -> dict:
+    """CPU copies of ``optimizer``'s per-parameter state, by index."""
+    return {i: {k: v.detach().to("cpu", copy=True) for k, v in st.items()}
+            for i, st in optimizer.state_dict()["state"].items()}
+
+
+def exp_avg_sq_rel_diff(a: dict, b: dict) -> float:
+    """The largest relative difference, over parameters, of the summed
+    ``exp_avg_sq`` of two AdamW states; every step count equal."""
+    assert a.keys() == b.keys() and len(b) > 0
+    worst = 0.0
+    for i in b:
+        assert torch.equal(a[i]["step"], b[i]["step"]), \
+            (i, a[i]["step"], b[i]["step"])
+        va, vb = (float(st[i]["exp_avg_sq"].double().sum()) for st in (a, b))
+        worst = max(worst, abs(va - vb) / max(vb, 1e-30))
+    return worst
+
+
+def run_entry(argv, device, per_frame, profile_step=None, tag="22 train entry",
+              adam=None):
+    """``memotr_tpu_torch.main.main(argv)`` with each ``Trainer.step``'s
+    kernel launches counted (set to 0 just before the step, read just
+    after; each must be ``per_frame`` x T) and step ``profile_step`` traced
+    by torch.profiler.  ``adam``, a dict keyed (step, "before" or
+    "after"), gets ``adam_state`` at those points.  Returns (what main
+    returns, [(T, counts)] a step, the profile's {"wall_ms", "busy_ms",
+    "families"}, peak GiB)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from memotr_tpu_torch.engine.trainer import Trainer
+    from memotr_tpu_torch.main import main as port_main
+    orig = Trainer.step
+    steps, prof = [], {}
+
+    def counted_step(self, batch, epoch=0):
+        t = batch["images"].shape[1]
+        torch.cuda.synchronize()
+        if adam is not None and (len(steps), "before") in adam:
+            adam[len(steps), "before"] = adam_state(self.optimizer)
+        reset_counts()
+        if len(steps) == profile_step:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as p:
+                t0 = time.perf_counter()
+                logs = orig(self, batch, epoch)
+                torch.cuda.synchronize()
+                prof["wall_ms"] = (time.perf_counter() - t0) * 1e3
+            fam = {}
+            for e in p.key_averages():
+                if e.device_type == DeviceType.CUDA \
+                        and e.self_device_time_total > 0:
+                    k = kernel_family(e.key)
+                    fam[k] = fam.get(k, 0.0) + e.self_device_time_total / 1e3
+            prof["busy_ms"] = sum(fam.values())
+            prof["families"] = fam
+        else:
+            logs = orig(self, batch, epoch)
+            torch.cuda.synchronize()
+        counts = read_counts()
+        if adam is not None and (len(steps), "after") in adam:
+            adam[len(steps), "after"] = adam_state(self.optimizer)
+        for kernel, n in per_frame.items():
+            assert counts[kernel] == n * t, \
+                f"{tag} step {len(steps)}: {kernel} launches " \
+                f"{counts[kernel]}, expected {n} x {t}"
+        steps.append((t, counts))
+        return logs
+
+    Trainer.step = counted_step
+    torch.empty(0, device=device)          # the context, for a phase alone
+    torch.cuda.reset_peak_memory_stats(device)
+    try:
+        out = port_main(argv + ["--device", str(device)])
+    finally:
+        Trainer.step = orig
+    return out, steps, prof, torch.cuda.max_memory_allocated(device) / 2 ** 30
+
+
+def check_moved(tag, model, pretrained) -> None:
+    """Every trainable parameter moved away from ``pretrained``, every
+    frozen one did not."""
+    from memotr_tpu_torch.engine.trainer import param_group_label
+    moved = frozen = 0
+    for name, p in model.named_parameters():
+        before = pretrained[name].to(p.device)
+        if param_group_label(name) == "frozen":
+            assert torch.equal(p.detach(), before), name
+            frozen += 1
+        else:
+            assert not torch.equal(p.detach(), before), name
+            moved += 1
+    say(tag, f"all {moved} trainable parameters moved from the pretrained "
+        f"ones, the {frozen} frozen ones did not")
+
+
+def mot_lines(out_dir: str, split: str) -> dict:
+    tracker = os.path.join(out_dir, split, "tracker")
+    return {f: mot_rows(os.path.join(tracker, f))
+            for f in sorted(os.listdir(tracker))}
+
+
+def phase_train_entry(device):
+    """Phase 22: train, resume and submit through the port's CLI, then the
+    windowed flagship through the same entry.  Returns the numbers for the
+    result lines."""
+    from memotr_tpu_torch.checkpoint.files import load_checkpoint
+    from memotr_tpu_torch.config import yaml_to_dict
+    from memotr_tpu_torch.data import build_dataset, native
+    from memotr_tpu_torch.data.seq_dataset import SeqDataset
+    from memotr_tpu_torch.models.memotr import build_model
+    tag = "22 train entry"
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "datasets")
+        write_tree(root, ENTRY_VIDEOS, seed=50)
+        yaml_path = os.path.join(tmp, "train_dancetrack.yaml")
+        entry_yaml(ENTRY_YAML, yaml_path)
+        cfg = yaml_to_dict(yaml_path)
+        pretrained = os.path.join(tmp, "pretrained.pth")
+        torch.save({"model": random_weights_(build_model(cfg)).state_dict()},
+                   pretrained)
+        say(tag, f"inputs: {sum(n for v in ENTRY_VIDEOS.values() for _, n in v)}"
+            f" JPEG frames {ENTRY_HW[1]}x{ENTRY_HW[0]} in "
+            f"{len(ENTRY_VIDEOS['train'])} train and "
+            f"{len(ENTRY_VIDEOS['val'])} val videos, a reference-format .pth "
+            f"of random_weights_ as PRETRAINED_MODEL, {ENTRY_YAML} with "
+            f"SAMPLE_STEPS {ENTRY_SAMPLE_STEPS} (NUM_WORKERS "
+            f"{cfg['NUM_WORKERS']}, DTYPE {cfg['DTYPE']}, SAMPLE_INTERVALS "
+            f"{cfg['SAMPLE_INTERVALS']}), in {time.perf_counter() - t0:.1f} s")
+        common = ["--config-path", yaml_path, "--data-root", root,
+                  "--pretrained-model", pretrained, "--epochs",
+                  str(ENTRY_EPOCHS)]
+        enc_dec = cfg["NUM_ENC_LAYERS"] + cfg["NUM_DEC_LAYERS"]
+        per_frame = {"msda_fwd": enc_dec, "msda_bwd": enc_dec,
+                     "window_attn_fwd": 0, "window_attn_bwd": 0}
+        out = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        unbroken_adam = {(10, "after"): None}    # epoch 1's first step
+        run, steps, prof, peak = run_entry(
+            common + ["--mode", "train", "--outputs-dir", out], device,
+            per_frame, profile_step=12, adam=unbroken_adam)
+        wall = time.perf_counter() - t0
+        n = len(steps)
+        say(tag, f"trained {n} steps over {ENTRY_EPOCHS} epochs in "
+            f"{wall:.1f} s: T per step {[t for t, _ in steps]}; "
+            f"msda_fwd and msda_bwd {enc_dec} x T every step ok "
+            f"(totals {sum(c['msda_fwd'] for _, c in steps)} / "
+            f"{sum(c['msda_bwd'] for _, c in steps)})")
+        assert run.states == {"start_epoch": ENTRY_EPOCHS, "global_iters": n}
+        assert [t for t, _ in steps] == [2] * 10 + [3] * 8, steps
+        with open(os.path.join(out, "train", "scalars.jsonl")) as f:
+            scalars = [json.loads(line) for line in f]
+        assert len(scalars) == ENTRY_EPOCHS
+        for rec in scalars:
+            assert np.isfinite(rec["total_loss"]), rec
+        for e in range(ENTRY_EPOCHS):
+            assert os.path.exists(os.path.join(out, f"checkpoint_{e}.pth")), e
+        say(tag, f"scalars.jsonl total_loss {[r['total_loss'] for r in scalars]}"
+            f" (finite); checkpoint_0.pth and checkpoint_1.pth written")
+        check_moved(tag, run.trainer.model,
+                    torch.load(pretrained, weights_only=True)["model"])
+        pre = run.pretrain
+        assert pre["shape_mismatch"] == pre["encoder_skipped"] == 0, pre
+        # steady iterations: not the first of an epoch, not the profiled one
+        firsts = {0, 10}
+        steady = [i for i in range(n) if i not in firsts | {12}]
+        it_ms = [1e3 * (run.wait_seconds[i] + run.step_seconds[i])
+                 for i in steady]
+        wait_ms = [1e3 * run.wait_seconds[i] for i in steady]
+        share = sum(wait_ms) / sum(it_ms)
+        idle = 1 - prof["busy_ms"] / prof["wall_ms"]
+        res["train"] = {
+            "iteration_ms": float(np.mean(it_ms)),
+            "iteration_ms_by_T": {
+                t: float(np.mean([it_ms[j] for j, i in enumerate(steady)
+                                  if steps[i][0] == t])) for t in (2, 3)},
+            "loader_wait_ms": float(np.mean(wait_ms)),
+            "loader_wait_share": share,
+            "loader_first_wait_ms": [1e3 * run.wait_seconds[i]
+                                     for i in sorted(firsts)],
+            "peak_gib": peak, "idle_share": idle,
+            "profiled_wall_ms": prof["wall_ms"],
+            "profiled_busy_ms": prof["busy_ms"],
+            "steps": n, "pretrain": pre}
+        say(tag, f"host wall per steady iteration {np.mean(it_ms):.1f} ms "
+            f"(T=2 {res['train']['iteration_ms_by_T'][2]:.1f}, T=3 "
+            f"{res['train']['iteration_ms_by_T'][3]:.1f}; {len(steady)} "
+            f"iterations); loader wait {np.mean(wait_ms):.1f} ms an "
+            f"iteration, {share:.1%} of it (first iteration of each epoch: "
+            f"{res['train']['loader_first_wait_ms']} ms); peak device memory "
+            f"{peak:.2f} GiB")
+        say(tag, f"profiled iteration 12 (T=3): host wall {prof['wall_ms']:.1f}"
+            f" ms under the profiler, device busy {prof['busy_ms']:.1f} ms, "
+            f"idle share {idle:.3f}")
+        for k, v in sorted(prof["families"].items(), key=lambda kv: -kv[1]):
+            say(tag, f"  {k}: {v:.2f} ms ({v / prof['busy_ms']:.1%} of busy)")
+
+        # resume from the epoch-0 checkpoint, epoch 1 only, twice: the
+        # second run is the first's noise witness
+        t0 = time.perf_counter()
+        resumed = []
+        for name in ("resumed", "resumed2"):
+            rdir = os.path.join(tmp, name)
+            radam = {(0, "before"): None, (0, "after"): None}
+            rrun, rsteps, _, _ = run_entry(
+                common + ["--mode", "train", "--outputs-dir", rdir,
+                          "--resume", os.path.join(out, "checkpoint_0.pth")],
+                device, per_frame, adam=radam)
+            assert [t for t, _ in rsteps] == [3] * 8, rsteps
+            assert rrun.states == run.states, (rrun.states, run.states)
+            assert not os.path.exists(os.path.join(rdir, "checkpoint_0.pth"))
+            with open(os.path.join(rdir, "train", "scalars.jsonl")) as f:
+                first = json.loads(f.readline())
+            resumed.append((load_checkpoint(
+                os.path.join(rdir, "checkpoint_1.pth")), first, radam))
+        (a, first, radam), (a2, _, radam2) = resumed
+        b = load_checkpoint(os.path.join(out, "checkpoint_1.pth"))
+        c = load_checkpoint(os.path.join(out, "checkpoint_0.pth"))
+        assert a["states"] == a2["states"] == b["states"] == run.states, \
+            (a["states"], b["states"])
+        want = scalars[1]
+        assert first["step"] == want["step"] == 10, (first, want)
+        losses = [k for k in want if k.endswith("loss")]
+        for k in losses:
+            assert abs(first[k] - want[k]) <= TRAIN_LOSS_RTOL * abs(want[k]), \
+                (k, first[k], want[k])
+        # the restored AdamW state: checkpoint_0's, bit for bit, when the
+        # resumed epoch starts; after its first step, the unbroken run's
+        # after the same step (the same state, gradients that differ in
+        # their last bits); after the epoch, the step counts
+        for st in (radam, radam2):
+            restored, saved = st[0, "before"], c["optimizer"]["state"]
+            assert restored.keys() == saved.keys() and len(saved) > 0
+            for i in saved:
+                for k, v in saved[i].items():
+                    assert torch.equal(restored[i][k], v.cpu()), (i, k)
+        v_first = exp_avg_sq_rel_diff(radam[0, "after"],
+                                      unbroken_adam[10, "after"])
+        v_first_witness = exp_avg_sq_rel_diff(radam2[0, "after"],
+                                              radam[0, "after"])
+        v_epoch = exp_avg_sq_rel_diff(a["optimizer"]["state"],
+                                      b["optimizer"]["state"])
+        v_epoch_witness = exp_avg_sq_rel_diff(a2["optimizer"]["state"],
+                                              a["optimizer"]["state"])
+        steps_b = sorted({int(st["step"])
+                          for st in b["optimizer"]["state"].values()})
+        names = [k for k, p in run.trainer.model.named_parameters()
+                 if p.requires_grad]
+        moved = torch.cat([(b["model"][k] - c["model"][k]).flatten()
+                           for k in names])
+
+        def param_diff(x, y):
+            d = torch.cat([(x["model"][k] - y["model"][k]).flatten()
+                           for k in names])
+            return float(d.abs().max()), float(d.norm() / moved.norm())
+
+        worst, rel = param_diff(a, b)
+        noise_worst, noise_rel = param_diff(a, a2)
+        bound = RESUME_STEP_BOUND * cfg["LR"] * 8
+        res["resume"] = {
+            "max_abs_diff": worst, "bound": bound, "rel_l2_of_update": rel,
+            "witness_max_abs_diff": noise_worst,
+            "witness_rel_l2_of_update": noise_rel,
+            "adam_steps": steps_b,
+            "exp_avg_sq_first_step_rel_diff": v_first,
+            "exp_avg_sq_first_step_witness": v_first_witness,
+            "exp_avg_sq_rtol": RESUME_V_RTOL,
+            "exp_avg_sq_epoch_rel_diff": v_epoch,
+            "exp_avg_sq_epoch_witness": v_epoch_witness}
+        say(tag, f"resume from checkpoint_0.pth, twice: 8 steps of epoch 1 "
+            f"each, {time.perf_counter() - t0:.1f} s both; states "
+            f"{a['states']} as the unbroken run's; the first iteration's "
+            f"{len(losses)} losses equal the unbroken run's (total_loss "
+            f"{first['total_loss']} vs {want['total_loss']}); AdamW state "
+            f"at the resumed epoch's start equals checkpoint_0's bit for "
+            f"bit; after its first step, exp_avg_sq sums within "
+            f"{v_first:.3e} of the unbroken run's (rtol {RESUME_V_RTOL:.3e}; "
+            f"second resumed run vs the first {v_first_witness:.3e}); after "
+            f"the epoch, step counts {steps_b} equal for all "
+            f"{len(b['optimizer']['state'])} parameters, exp_avg_sq sums "
+            f"within {v_epoch:.3e} (witness {v_epoch_witness:.3e}); "
+            f"parameters vs the unbroken run: max |diff| {worst:.3e} (bound "
+            f"{bound:.1e}), L2 {rel:.3e} of epoch 1's update; second resumed "
+            f"run vs the first (noise witness): max |diff| {noise_worst:.3e},"
+            f" L2 {noise_rel:.3e}")
+        assert v_first <= RESUME_V_RTOL, (v_first, RESUME_V_RTOL)
+        assert worst <= bound, (worst, bound)
+
+        # submit the val split from checkpoint_1.pth
+        t0 = time.perf_counter()
+        thresh = str(ENTRY_THRESH)
+        from memotr_tpu_torch.main import main as port_main
+        port_main(["--config-path", yaml_path, "--data-root", root,
+                   "--mode", "submit", "--submit-dir", out, "--submit-model",
+                   "checkpoint_1.pth", "--submit-data-split", "val",
+                   "--det-score-thresh", thresh, "--track-score-thresh",
+                   thresh, "--result-score-thresh", thresh,
+                   "--device", str(device)])
+        txts = mot_lines(out, "val")
+        want = [f"{name}.txt" for name, _ in ENTRY_VIDEOS["val"]]
+        assert list(txts) == want, txts
+        for name, rows in txts.items():
+            assert rows, f"{name}: no MOT lines"
+            assert {r[0] for r in rows} <= set(range(1, 7)), name
+        decode = SeqDataset(os.path.join(root, "DanceTrack", "val",
+                                         ENTRY_VIDEOS["val"][0][0])).decode_path
+        assert decode == ("native" if native.available() else "python")
+        res["submit"] = {"lines": {k: len(v) for k, v in txts.items()},
+                         "decode": decode,
+                         "native_unavailable": None if native.available()
+                         else native.unavailable_reason()}
+        say(tag, f"submit from checkpoint_1.pth in "
+            f"{time.perf_counter() - t0:.1f} s: "
+            + ", ".join(f"{k} {len(v)} MOT lines" for k, v in txts.items())
+            + f" (thresholds {thresh}); frames decoded by the {decode} path"
+            + ("" if native.available() else
+               f" (native data plane unavailable here: "
+               f"{native.unavailable_reason()})"))
+
+        # the Data layer alone: every training clip of each epoch, loaded
+        # once on this thread
+        dataset = build_dataset(dict(cfg, DATA_ROOT=root), split="train")
+        clip_ms = {}
+        for epoch in range(ENTRY_EPOCHS):
+            dataset.set_epoch(epoch)
+            ms = []
+            for j in range(len(dataset)):
+                t0 = time.perf_counter()
+                clip = dataset.get(j)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            clip_ms[len(clip["imgs"])] = ms
+        res["data"] = {"clip_ms_by_T": {t: float(np.mean(v))
+                                        for t, v in clip_ms.items()},
+                       "frame_ms": float(np.mean([m / t for t, v in
+                                                  clip_ms.items()
+                                                  for m in v])),
+                       "clips": sum(len(v) for v in clip_ms.values())}
+        say(tag, "Data layer: ClipDataset.get on one host thread, "
+            + ", ".join(f"T={t}: {np.mean(v):.1f} ms a clip over {len(v)}"
+                        for t, v in clip_ms.items())
+            + f"; {res['data']['frame_ms']:.1f} ms a {ENTRY_HW[1]}x"
+            f"{ENTRY_HW[0]} frame (decode, MOTR_SCALES transforms)")
+
+        # the windowed flagship through the same entry: one 5-frame video
+        wroot = os.path.join(tmp, "windowed_data")
+        write_tree(wroot, ENTRY_WINDOWED_VIDEOS, seed=70)
+        wyaml = os.path.join(tmp, "train_dancetrack_windowed.yaml")
+        entry_yaml(ENTRY_WINDOWED_YAML, wyaml)
+        wcfg = yaml_to_dict(wyaml)
+        levels = wcfg["NUM_ENC_LAYERS"] * wcfg["NUM_FEATURE_LEVELS"]
+        wper = {"window_attn_fwd": levels, "window_attn_bwd": levels,
+                "msda_fwd": wcfg["NUM_DEC_LAYERS"],
+                "msda_bwd": wcfg["NUM_DEC_LAYERS"]}
+        t0 = time.perf_counter()
+        wrun, wsteps, _, wpeak = run_entry(
+            ["--config-path", wyaml, "--data-root", wroot, "--mode", "train",
+             "--outputs-dir", os.path.join(tmp, "windowed"), "--epochs", "1",
+             "--pretrained-model", pretrained], device, wper,
+            tag="22 windowed entry")
+        assert [t for t, _ in wsteps] == [2] * 4, wsteps
+        assert wrun.pretrain["encoder_skipped"] > 0, wrun.pretrain
+        res["windowed"] = {"steps": len(wsteps), "pretrain": wrun.pretrain,
+                           "peak_gib": wpeak, "iteration_ms": float(np.mean(
+                               [1e3 * (w + s) for w, s in zip(
+                                   wrun.wait_seconds[1:],
+                                   wrun.step_seconds[1:])]))}
+        say("22 windowed entry", f"{ENTRY_WINDOWED_YAML}: {len(wsteps)} steps "
+            f"T=2 in {time.perf_counter() - t0:.1f} s; per step "
+            + ", ".join(f"{k} {n} x T" for k, n in wper.items())
+            + f" launches ok; pretrain from the deformable .pth "
+            f"{wrun.pretrain} (encoder skipped); "
+            f"{res['windowed']['iteration_ms']:.1f} ms an iteration after "
+            f"the first; peak {wpeak:.2f} GiB")
+        res["counts"] = {k: sum(c[k] for _, c in steps) for k in per_frame}
+        res["windowed_counts"] = {k: sum(c[k] for _, c in wsteps)
+                                  for k in wper}
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke run needs "
@@ -1727,10 +2213,17 @@ def main() -> int:
                     device, "21 hybrid train f32", HYBRID_TRAIN_CONFIG,
                     WINDOWED_TRAIN_NORM_RTOL)
     say("21 hybrid train f32", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    entry = phase_train_entry(device)
+    say("22 train entry", f"done in {time.perf_counter() - t0:.1f} s")
     say("all", f"{time.perf_counter() - t_all:.1f} s")
 
     k1, k2 = k1_times["encoder"], k2_times["window_l0"]
     k1b, k2b = k1b_times["encoder"], k2b_times["window_l0"]
+    print(json.dumps({"train_entry": {
+        "config": ENTRY_YAML, "card": card, **entry["train"],
+        "resume": entry["resume"], "submit": entry["submit"],
+        "data": entry["data"], "windowed": entry["windowed"]}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": "msda_fwd", "route": "cuda", "source": K1_SRC,
@@ -1743,6 +2236,8 @@ def main() -> int:
          "launches_batched": batched_counts["msda_fwd"],
          "launches_conv": conv_counts["msda_fwd"],
          "launches_train_conv": conv_train_counts["msda_fwd"],
+         "launches_train_entry": entry["counts"]["msda_fwd"],
+         "launches_train_entry_windowed": entry["windowed_counts"]["msda_fwd"],
          "encoder_b2": {k: k1_times["encoder_b2"][k] for k in (
              "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
              "bound_by")}},
@@ -1757,6 +2252,8 @@ def main() -> int:
          "launches_hybrid": hybrid_counts["window_attn_fwd"],
          "launches_train_windowed": win_counts["window_attn_fwd"],
          "launches_batched": win_batched_counts["window_attn_fwd"],
+         "launches_train_entry_windowed":
+             entry["windowed_counts"]["window_attn_fwd"],
          **{case: {k: k2_times[case][k] for k in (
              "ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
              "library_device_ms", "bound_ms", "bound_by")}
@@ -1773,12 +2270,16 @@ def main() -> int:
          "library_ms": None, "library_device_ms": None,
          "shape": "encoder B=1 Lq=28560 bf16 (896x1536)",
          "launches_train_fwd": train_counts["msda_fwd"],
-         "launches_train_windowed": win_counts["msda_bwd"]},
+         "launches_train_windowed": win_counts["msda_bwd"],
+         "launches_train_entry": entry["counts"]["msda_bwd"],
+         "launches_train_entry_windowed": entry["windowed_counts"]["msda_bwd"]},
         {"name": "window_attn_bwd", "route": "cuda", "source": K2B_SRC,
          "replaces": K2B_TPU, "launches": win_counts["window_attn_bwd"],
          "launches_per_step": {
              "windowed": [c["window_attn_bwd"] for c in win_steps],
              "hybrid": [c["window_attn_bwd"] for c in hyb_steps]},
+         "launches_train_entry_windowed":
+             entry["windowed_counts"]["window_attn_bwd"],
          "max_abs_err": k2b_err, "ms": k2b["ms"],
          "device_ms": k2b["device_ms"],
          "kernel_device_ms": k2b["kernel_device_ms"],

@@ -596,6 +596,15 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     return ckpt["model"] if "model" in ckpt else ckpt
 
 
+def decode_note(native: bool) -> str:
+    """Which decode path a dataset takes, for the logs."""
+    from ..data import native as dataplane
+    if native:
+        return "native data plane (native/dataplane.cpp)"
+    return (f"python (cv2); native data plane unavailable: "
+            f"{dataplane.unavailable_reason()}")
+
+
 def submit(config: dict, device: torch.device | str = "cuda"):
     """Submit entry: every sequence of the split, through
     ``stream_sequences``.
@@ -631,6 +640,7 @@ def submit(config: dict, device: torch.device | str = "cuda"):
                                   cfg_get(config, "EVAL_SHORT_SIDE"),
                                   cfg_get(config, "EVAL_MAX_SIDE")))
                  for seq in sorted(os.listdir(split_dir))]
+    print(f"Frame decode: {decode_note(sequences[0][1].native)}", flush=True)
     stream_sequences(dataset_name, sequences,
                      os.path.join(config["SUBMIT_DIR"], split), model, config,
                      device)

@@ -1,8 +1,12 @@
-"""Small numeric helpers (counterpart of ``memotr_tpu/utils/misc.py``)."""
+"""Small numeric and set-up helpers (counterpart of
+``memotr_tpu/utils/misc.py``)."""
 from __future__ import annotations
 
 import math
+import os
+import random
 
+import numpy as np
 import torch
 
 
@@ -42,3 +46,15 @@ def pos_to_pos_embed(pos: torch.Tensor, num_pos_feats: int = 64,
     pe = pos[..., None] / dim_i                       # (..., M, F)
     pe = torch.stack([pe[..., 0::2].sin(), pe[..., 1::2].cos()], dim=-1)
     return pe.flatten(-3)
+
+
+def set_seed(seed: int, rank: int = 0) -> int:
+    """Seeds the host generators the data pipeline draws from (``random``,
+    ``np.random``, ``PYTHONHASHSEED``) with ``seed + rank``, as the JAX
+    package does, so that both draw the same augmentations.  Returns the
+    seed used."""
+    seed = seed + rank
+    np.random.seed(seed)
+    random.seed(seed)
+    os.environ["PYTHONHASHSEED"] = str(seed)
+    return seed

@@ -241,7 +241,10 @@ PORT_MODULES = [
         "data.seq_dataset", "checkpoint.convert", "utils.box_ops",
         "structures.padded_frame", "data.loader", "ops.hungarian",
         "models.criterion", "models.track_selection", "engine.trainer",
-        "models.motion", "models.conv_encoder")]
+        "models.motion", "models.conv_encoder", "data", "data.transforms",
+        "data.mot", "data.dancetrack", "data.mot17", "data.bdd100k",
+        "data.gen_gts", "data.native", "log.logger", "checkpoint.files",
+        "engine.train", "main")]
 
 
 def test_port_imports_no_jax():
