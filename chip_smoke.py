@@ -6,8 +6,9 @@ Phases, each printed on its own line; any failure ends the run with a
 nonzero exit and no result line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: the three kernels from memotr_tpu_torch/csrc/ (one nvcc each,
-   in parallel), with ptxas's registers and spills per kernel;
+2. build: the four kernel libraries from memotr_tpu_torch/csrc/ (K1 and
+   its backward, K2 and its backward; one nvcc each, in parallel), with
+   ptxas's registers and spills per kernel;
 3. K1 (MSDA forward) vs plain PyTorch on the card at the MSDA shapes of the
    paths (encoder B=1 and B=2, decoder B=1 and B=2, one awkward shape),
    float32 and
@@ -122,10 +123,32 @@ nonzero exit and no result line:
     windowed flagship (configs/train_dancetrack_windowed.yaml, one 5-frame
     video, 4 steps) through the same entry: 12 T K2 and 6 T K1 launches,
     forward and backward, every step;
-Phases run in the order 1-10, 18, 19, 11-17, 20, 21, 22; then a JSON line
-of the training entry's numbers, a JSON line of kernel results, the card's
-name and power limit and, last, the device line
-``{"ok": true, "device": {...}}``.
+23. evaluation on phase 22's run through ``memotr_tpu_torch.main --mode
+    eval``: ``specific`` on checkpoint_1.pth, then ``continue`` over both
+    epoch checkpoints, on the val split (1920x1080 JPEGs at short side
+    800; 12 K1 launches a frame); the tracker directories,
+    pedestrian_summary.txt, eval_states.yaml and finite HOTA, DetA, AssA,
+    MOTA and IDF1; submit ms a frame, the metrics' host seconds a
+    sequence; then the train
+    split's two gt.txt scored as a tracker with ``num_parallel`` 8 (a
+    spawned pool of 2 in this process, after CUDA and the loader's
+    threads; a pool that has not finished in EVAL_POOL_TIMEOUT fails the
+    phase) read HOTA = MOTA = IDF1 = 100, as in one process;
+24. distillation: phase 22's windowed flagship (its tree, YAML and
+    pretrained .pth) learns from phase 22's deformable checkpoint_1.pth
+    through ``--distill-teacher``: 4 steps at T=2, 12 T more K1 forward
+    launches a step than phase 22's windowed run and the same K1
+    backward, K2 forward and K2 backward counts; the three distillation
+    terms finite and > 0 every step; the teacher untouched, frozen, out
+    of the optimizer and of the student's checkpoint; host ms an
+    iteration against phase 22's windowed run, peak memory, and a
+    profiled step's idle share and the teacher's share of its device
+    time;
+Phases run in the order 1-10, 18, 19, 11-17, 20, 21, 22, 23, 24; then a
+JSON line of the training entry's numbers, a JSON line of evaluation's
+and distillation's, the card's name and power limit, a JSON line of
+kernel results and, last, the device line ``{"ok": true, "device":
+{...}}``.
 
 There is no CPU path: without a CUDA device the script exits nonzero.
 """
@@ -134,9 +157,11 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -605,6 +630,28 @@ def kernel_name(key: str) -> str:
     return m.group(1) if m else key
 
 
+def is_kernel(e) -> bool:
+    """A profiler event that is a CUDA kernel with device time: not the
+    device-side span of a user range (``record_function``, such as
+    ``Optimizer.step``'s), which the profiler lists under the device too
+    and which covers the gaps between the range's kernels."""
+    from torch.autograd import DeviceType
+    return (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False))
+
+
+def range_device_ms(events, name: str) -> float:
+    """Device ms of the kernels launched inside the host ranges ``name``
+    (``prof.events()``), without the range's own device-side span."""
+    from torch.autograd import DeviceType
+    total = 0.0
+    for e in events:
+        if e.name == name and e.device_type == DeviceType.CPU:
+            total += e.device_time_total - sum(
+                k.duration for k in e.kernels if k.name == name)
+    return total / 1e3
+
+
 def device_ms_by_kernel(fn, calls: int = 10) -> dict:
     """{kernel: (mean device ms per call, launches recorded)} of every CUDA
     kernel that ``calls`` calls of ``fn`` run.  The profiler now and then
@@ -612,7 +659,6 @@ def device_ms_by_kernel(fn, calls: int = 10) -> dict:
     kernel's time per call is its mean time per recorded launch times its
     launches per call (recorded launches / calls, rounded), and a profiling
     run that recorded no device event at all is run again, at most twice."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -623,7 +669,7 @@ def device_ms_by_kernel(fn, calls: int = 10) -> dict:
             torch.cuda.synchronize()
         parts = {}
         for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            if is_kernel(e):
                 per_call = max(1, round(e.count / calls))
                 parts[e.key] = (e.self_device_time_total / 1e3 / e.count
                                 * per_call, e.count)
@@ -948,7 +994,6 @@ def kernel_family(name: str) -> str:
 def phase_profile(model, config, device, n_frames: int = 3):
     """Windowed frames after two warm-up frames: timed, then the same
     frames again under torch.profiler for device time by kernel family."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from memotr_tpu_torch.engine.submit import normalize_uint8
@@ -992,7 +1037,7 @@ def phase_profile(model, config, device, n_frames: int = 3):
             wall_prof = (time.perf_counter() - t0) * 1e3 / n_frames
     fam = {}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+        if is_kernel(e):
             k = kernel_family(e.key)
             fam[k] = fam.get(k, 0.0) + e.self_device_time_total / 1e3 / n_frames
     busy = sum(fam.values())
@@ -1385,7 +1430,6 @@ def profile_train_step(trainer, device, tag="12 train",
                        family="K1 msda_bwd"):
     """One more T=2 step, timed with the host matching timed apart, then
     the same under torch.profiler: device busy time by kernel family."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from memotr_tpu_torch.models import criterion
@@ -1415,7 +1459,7 @@ def profile_train_step(trainer, device, tag="12 train",
         torch.cuda.synchronize()
     fam = {}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+        if is_kernel(e):
             k = kernel_family(e.key)
             fam[k] = fam.get(k, 0.0) + e.self_device_time_total / 1e3
     busy = sum(fam.values())
@@ -1720,15 +1764,19 @@ def exp_avg_sq_rel_diff(a: dict, b: dict) -> float:
 
 
 def run_entry(argv, device, per_frame, profile_step=None, tag="22 train entry",
-              adam=None):
+              adam=None, keep=(), kept=None):
     """``memotr_tpu_torch.main.main(argv)`` with each ``Trainer.step``'s
     kernel launches counted (set to 0 just before the step, read just
     after; each must be ``per_frame`` x T) and step ``profile_step`` traced
     by torch.profiler.  ``adam``, a dict keyed (step, "before" or
     "after"), gets ``adam_state`` at those points.  Returns (what main
     returns, [(T, counts)] a step, the profile's {"wall_ms", "busy_ms",
-    "families"}, peak GiB)."""
-    from torch.autograd import DeviceType
+    "families", "teacher_ms", "top_kernels"}, peak GiB); ``top_kernels``:
+    the TOP_KERNELS kernels of most device time, as (name, ms, launches);
+    ``teacher_ms`` is the device
+    time of the kernels launched inside ``TEACHER_RANGE`` ranges (phase
+    24 opens one around each teacher forward).  The logs named in ``keep``
+    go to ``kept`` as floats, a dict a step."""
     from torch.profiler import ProfilerActivity, profile
 
     from memotr_tpu_torch.engine.trainer import Trainer
@@ -1751,16 +1799,22 @@ def run_entry(argv, device, per_frame, profile_step=None, tag="22 train entry",
                 prof["wall_ms"] = (time.perf_counter() - t0) * 1e3
             fam = {}
             for e in p.key_averages():
-                if e.device_type == DeviceType.CUDA \
-                        and e.self_device_time_total > 0:
+                if is_kernel(e):
                     k = kernel_family(e.key)
                     fam[k] = fam.get(k, 0.0) + e.self_device_time_total / 1e3
             prof["busy_ms"] = sum(fam.values())
             prof["families"] = fam
+            prof["teacher_ms"] = range_device_ms(p.events(), TEACHER_RANGE)
+            prof["top_kernels"] = sorted(
+                ((e.key, e.self_device_time_total / 1e3, e.count)
+                 for e in p.key_averages() if is_kernel(e)),
+                key=lambda kv: -kv[1])[:TOP_KERNELS]
         else:
             logs = orig(self, batch, epoch)
             torch.cuda.synchronize()
         counts = read_counts()
+        if kept is not None:
+            kept.append({k: float(logs[k]) for k in keep})
         if adam is not None and (len(steps), "after") in adam:
             adam[len(steps), "after"] = adam_state(self.optimizer)
         for kernel, n in per_frame.items():
@@ -1803,10 +1857,12 @@ def mot_lines(out_dir: str, split: str) -> dict:
             for f in sorted(os.listdir(tracker))}
 
 
-def phase_train_entry(device):
+def phase_train_entry(device, tmp=None):
     """Phase 22: train, resume and submit through the port's CLI, then the
-    windowed flagship through the same entry.  Returns the numbers for the
-    result lines."""
+    windowed flagship through the same entry, in ``tmp`` (a temporary
+    directory, removed after, when None).  Returns the numbers for the
+    result lines and, under ``"paths"``, the trees, YAML files and runs
+    that phases 23 and 24 go on with."""
     from memotr_tpu_torch.checkpoint.files import load_checkpoint
     from memotr_tpu_torch.config import yaml_to_dict
     from memotr_tpu_torch.data import build_dataset, native
@@ -1814,271 +1870,597 @@ def phase_train_entry(device):
     from memotr_tpu_torch.models.memotr import build_model
     tag = "22 train entry"
     res = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    if tmp is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            return phase_train_entry(device, tmp)
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "datasets")
+    write_tree(root, ENTRY_VIDEOS, seed=50)
+    yaml_path = os.path.join(tmp, "train_dancetrack.yaml")
+    entry_yaml(ENTRY_YAML, yaml_path)
+    cfg = yaml_to_dict(yaml_path)
+    pretrained = os.path.join(tmp, "pretrained.pth")
+    torch.save({"model": random_weights_(build_model(cfg)).state_dict()},
+               pretrained)
+    say(tag, f"inputs: {sum(n for v in ENTRY_VIDEOS.values() for _, n in v)}"
+        f" JPEG frames {ENTRY_HW[1]}x{ENTRY_HW[0]} in "
+        f"{len(ENTRY_VIDEOS['train'])} train and "
+        f"{len(ENTRY_VIDEOS['val'])} val videos, a reference-format .pth "
+        f"of random_weights_ as PRETRAINED_MODEL, {ENTRY_YAML} with "
+        f"SAMPLE_STEPS {ENTRY_SAMPLE_STEPS} (NUM_WORKERS "
+        f"{cfg['NUM_WORKERS']}, DTYPE {cfg['DTYPE']}, SAMPLE_INTERVALS "
+        f"{cfg['SAMPLE_INTERVALS']}), in {time.perf_counter() - t0:.1f} s")
+    common = ["--config-path", yaml_path, "--data-root", root,
+              "--pretrained-model", pretrained, "--epochs",
+              str(ENTRY_EPOCHS)]
+    enc_dec = cfg["NUM_ENC_LAYERS"] + cfg["NUM_DEC_LAYERS"]
+    per_frame = {"msda_fwd": enc_dec, "msda_bwd": enc_dec,
+                 "window_attn_fwd": 0, "window_attn_bwd": 0}
+    out = os.path.join(tmp, "run")
+    t0 = time.perf_counter()
+    unbroken_adam = {(10, "after"): None}    # epoch 1's first step
+    run, steps, prof, peak = run_entry(
+        common + ["--mode", "train", "--outputs-dir", out], device,
+        per_frame, profile_step=12, adam=unbroken_adam)
+    wall = time.perf_counter() - t0
+    n = len(steps)
+    say(tag, f"trained {n} steps over {ENTRY_EPOCHS} epochs in "
+        f"{wall:.1f} s: T per step {[t for t, _ in steps]}; "
+        f"msda_fwd and msda_bwd {enc_dec} x T every step ok "
+        f"(totals {sum(c['msda_fwd'] for _, c in steps)} / "
+        f"{sum(c['msda_bwd'] for _, c in steps)})")
+    assert run.states == {"start_epoch": ENTRY_EPOCHS, "global_iters": n}
+    assert [t for t, _ in steps] == [2] * 10 + [3] * 8, steps
+    with open(os.path.join(out, "train", "scalars.jsonl")) as f:
+        scalars = [json.loads(line) for line in f]
+    assert len(scalars) == ENTRY_EPOCHS
+    for rec in scalars:
+        assert np.isfinite(rec["total_loss"]), rec
+    for e in range(ENTRY_EPOCHS):
+        assert os.path.exists(os.path.join(out, f"checkpoint_{e}.pth")), e
+    say(tag, f"scalars.jsonl total_loss {[r['total_loss'] for r in scalars]}"
+        f" (finite); checkpoint_0.pth and checkpoint_1.pth written")
+    check_moved(tag, run.trainer.model,
+                torch.load(pretrained, weights_only=True)["model"])
+    pre = run.pretrain
+    assert pre["shape_mismatch"] == pre["encoder_skipped"] == 0, pre
+    # steady iterations: not the first of an epoch, not the profiled one
+    firsts = {0, 10}
+    steady = [i for i in range(n) if i not in firsts | {12}]
+    it_ms = [1e3 * (run.wait_seconds[i] + run.step_seconds[i])
+             for i in steady]
+    wait_ms = [1e3 * run.wait_seconds[i] for i in steady]
+    share = sum(wait_ms) / sum(it_ms)
+    idle = 1 - prof["busy_ms"] / prof["wall_ms"]
+    res["train"] = {
+        "iteration_ms": float(np.mean(it_ms)),
+        "iteration_ms_by_T": {
+            t: float(np.mean([it_ms[j] for j, i in enumerate(steady)
+                              if steps[i][0] == t])) for t in (2, 3)},
+        "loader_wait_ms": float(np.mean(wait_ms)),
+        "loader_wait_share": share,
+        "loader_first_wait_ms": [1e3 * run.wait_seconds[i]
+                                 for i in sorted(firsts)],
+        "peak_gib": peak, "idle_share": idle,
+        "profiled_wall_ms": prof["wall_ms"],
+        "profiled_busy_ms": prof["busy_ms"],
+        "steps": n, "pretrain": pre}
+    say(tag, f"host wall per steady iteration {np.mean(it_ms):.1f} ms "
+        f"(T=2 {res['train']['iteration_ms_by_T'][2]:.1f}, T=3 "
+        f"{res['train']['iteration_ms_by_T'][3]:.1f}; {len(steady)} "
+        f"iterations); loader wait {np.mean(wait_ms):.1f} ms an "
+        f"iteration, {share:.1%} of it (first iteration of each epoch: "
+        f"{res['train']['loader_first_wait_ms']} ms); peak device memory "
+        f"{peak:.2f} GiB")
+    say(tag, f"profiled iteration 12 (T=3): host wall {prof['wall_ms']:.1f}"
+        f" ms under the profiler, device busy {prof['busy_ms']:.1f} ms, "
+        f"idle share {idle:.3f}")
+    for k, v in sorted(prof["families"].items(), key=lambda kv: -kv[1]):
+        say(tag, f"  {k}: {v:.2f} ms ({v / prof['busy_ms']:.1%} of busy)")
+
+    # resume from the epoch-0 checkpoint, epoch 1 only, twice: the
+    # second run is the first's noise witness
+    t0 = time.perf_counter()
+    resumed = []
+    for name in ("resumed", "resumed2"):
+        rdir = os.path.join(tmp, name)
+        radam = {(0, "before"): None, (0, "after"): None}
+        rrun, rsteps, _, _ = run_entry(
+            common + ["--mode", "train", "--outputs-dir", rdir,
+                      "--resume", os.path.join(out, "checkpoint_0.pth")],
+            device, per_frame, adam=radam)
+        assert [t for t, _ in rsteps] == [3] * 8, rsteps
+        assert rrun.states == run.states, (rrun.states, run.states)
+        assert not os.path.exists(os.path.join(rdir, "checkpoint_0.pth"))
+        with open(os.path.join(rdir, "train", "scalars.jsonl")) as f:
+            first = json.loads(f.readline())
+        resumed.append((load_checkpoint(
+            os.path.join(rdir, "checkpoint_1.pth")), first, radam))
+    (a, first, radam), (a2, _, radam2) = resumed
+    b = load_checkpoint(os.path.join(out, "checkpoint_1.pth"))
+    c = load_checkpoint(os.path.join(out, "checkpoint_0.pth"))
+    assert a["states"] == a2["states"] == b["states"] == run.states, \
+        (a["states"], b["states"])
+    want = scalars[1]
+    assert first["step"] == want["step"] == 10, (first, want)
+    losses = [k for k in want if k.endswith("loss")]
+    for k in losses:
+        assert abs(first[k] - want[k]) <= TRAIN_LOSS_RTOL * abs(want[k]), \
+            (k, first[k], want[k])
+    # the restored AdamW state: checkpoint_0's, bit for bit, when the
+    # resumed epoch starts; after its first step, the unbroken run's
+    # after the same step (the same state, gradients that differ in
+    # their last bits); after the epoch, the step counts
+    for st in (radam, radam2):
+        restored, saved = st[0, "before"], c["optimizer"]["state"]
+        assert restored.keys() == saved.keys() and len(saved) > 0
+        for i in saved:
+            for k, v in saved[i].items():
+                assert torch.equal(restored[i][k], v.cpu()), (i, k)
+    v_first = exp_avg_sq_rel_diff(radam[0, "after"],
+                                  unbroken_adam[10, "after"])
+    v_first_witness = exp_avg_sq_rel_diff(radam2[0, "after"],
+                                          radam[0, "after"])
+    v_epoch = exp_avg_sq_rel_diff(a["optimizer"]["state"],
+                                  b["optimizer"]["state"])
+    v_epoch_witness = exp_avg_sq_rel_diff(a2["optimizer"]["state"],
+                                          a["optimizer"]["state"])
+    steps_b = sorted({int(st["step"])
+                      for st in b["optimizer"]["state"].values()})
+    names = [k for k, p in run.trainer.model.named_parameters()
+             if p.requires_grad]
+    moved = torch.cat([(b["model"][k] - c["model"][k]).flatten()
+                       for k in names])
+
+    def param_diff(x, y):
+        d = torch.cat([(x["model"][k] - y["model"][k]).flatten()
+                       for k in names])
+        return float(d.abs().max()), float(d.norm() / moved.norm())
+
+    worst, rel = param_diff(a, b)
+    noise_worst, noise_rel = param_diff(a, a2)
+    bound = RESUME_STEP_BOUND * cfg["LR"] * 8
+    res["resume"] = {
+        "max_abs_diff": worst, "bound": bound, "rel_l2_of_update": rel,
+        "witness_max_abs_diff": noise_worst,
+        "witness_rel_l2_of_update": noise_rel,
+        "adam_steps": steps_b,
+        "exp_avg_sq_first_step_rel_diff": v_first,
+        "exp_avg_sq_first_step_witness": v_first_witness,
+        "exp_avg_sq_rtol": RESUME_V_RTOL,
+        "exp_avg_sq_epoch_rel_diff": v_epoch,
+        "exp_avg_sq_epoch_witness": v_epoch_witness}
+    say(tag, f"resume from checkpoint_0.pth, twice: 8 steps of epoch 1 "
+        f"each, {time.perf_counter() - t0:.1f} s both; states "
+        f"{a['states']} as the unbroken run's; the first iteration's "
+        f"{len(losses)} losses equal the unbroken run's (total_loss "
+        f"{first['total_loss']} vs {want['total_loss']}); AdamW state "
+        f"at the resumed epoch's start equals checkpoint_0's bit for "
+        f"bit; after its first step, exp_avg_sq sums within "
+        f"{v_first:.3e} of the unbroken run's (rtol {RESUME_V_RTOL:.3e}; "
+        f"second resumed run vs the first {v_first_witness:.3e}); after "
+        f"the epoch, step counts {steps_b} equal for all "
+        f"{len(b['optimizer']['state'])} parameters, exp_avg_sq sums "
+        f"within {v_epoch:.3e} (witness {v_epoch_witness:.3e}); "
+        f"parameters vs the unbroken run: max |diff| {worst:.3e} (bound "
+        f"{bound:.1e}), L2 {rel:.3e} of epoch 1's update; second resumed "
+        f"run vs the first (noise witness): max |diff| {noise_worst:.3e},"
+        f" L2 {noise_rel:.3e}")
+    assert v_first <= RESUME_V_RTOL, (v_first, RESUME_V_RTOL)
+    assert worst <= bound, (worst, bound)
+
+    # submit the val split from checkpoint_1.pth
+    t0 = time.perf_counter()
+    thresh = str(ENTRY_THRESH)
+    from memotr_tpu_torch.main import main as port_main
+    port_main(["--config-path", yaml_path, "--data-root", root,
+               "--mode", "submit", "--submit-dir", out, "--submit-model",
+               "checkpoint_1.pth", "--submit-data-split", "val",
+               "--det-score-thresh", thresh, "--track-score-thresh",
+               thresh, "--result-score-thresh", thresh,
+               "--device", str(device)])
+    txts = mot_lines(out, "val")
+    want = [f"{name}.txt" for name, _ in ENTRY_VIDEOS["val"]]
+    assert list(txts) == want, txts
+    for name, rows in txts.items():
+        assert rows, f"{name}: no MOT lines"
+        assert {r[0] for r in rows} <= set(range(1, 7)), name
+    decode = SeqDataset(os.path.join(root, "DanceTrack", "val",
+                                     ENTRY_VIDEOS["val"][0][0])).decode_path
+    assert decode == ("native" if native.available() else "python")
+    res["submit"] = {"lines": {k: len(v) for k, v in txts.items()},
+                     "decode": decode,
+                     "native_unavailable": None if native.available()
+                     else native.unavailable_reason()}
+    say(tag, f"submit from checkpoint_1.pth in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {len(v)} MOT lines" for k, v in txts.items())
+        + f" (thresholds {thresh}); frames decoded by the {decode} path"
+        + ("" if native.available() else
+           f" (native data plane unavailable here: "
+           f"{native.unavailable_reason()})"))
+
+    # the Data layer alone: every training clip of each epoch, loaded
+    # once on this thread
+    dataset = build_dataset(dict(cfg, DATA_ROOT=root), split="train")
+    clip_ms = {}
+    for epoch in range(ENTRY_EPOCHS):
+        dataset.set_epoch(epoch)
+        ms = []
+        for j in range(len(dataset)):
+            t0 = time.perf_counter()
+            clip = dataset.get(j)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        clip_ms[len(clip["imgs"])] = ms
+    res["data"] = {"clip_ms_by_T": {t: float(np.mean(v))
+                                    for t, v in clip_ms.items()},
+                   "frame_ms": float(np.mean([m / t for t, v in
+                                              clip_ms.items()
+                                              for m in v])),
+                   "clips": sum(len(v) for v in clip_ms.values())}
+    say(tag, "Data layer: ClipDataset.get on one host thread, "
+        + ", ".join(f"T={t}: {np.mean(v):.1f} ms a clip over {len(v)}"
+                    for t, v in clip_ms.items())
+        + f"; {res['data']['frame_ms']:.1f} ms a {ENTRY_HW[1]}x"
+        f"{ENTRY_HW[0]} frame (decode, MOTR_SCALES transforms)")
+
+    # the windowed flagship through the same entry: one 5-frame video
+    wroot = os.path.join(tmp, "windowed_data")
+    write_tree(wroot, ENTRY_WINDOWED_VIDEOS, seed=70)
+    wyaml = os.path.join(tmp, "train_dancetrack_windowed.yaml")
+    entry_yaml(ENTRY_WINDOWED_YAML, wyaml)
+    wcfg = yaml_to_dict(wyaml)
+    levels = wcfg["NUM_ENC_LAYERS"] * wcfg["NUM_FEATURE_LEVELS"]
+    wper = {"window_attn_fwd": levels, "window_attn_bwd": levels,
+            "msda_fwd": wcfg["NUM_DEC_LAYERS"],
+            "msda_bwd": wcfg["NUM_DEC_LAYERS"]}
+    t0 = time.perf_counter()
+    wrun, wsteps, _, wpeak = run_entry(
+        ["--config-path", wyaml, "--data-root", wroot, "--mode", "train",
+         "--outputs-dir", os.path.join(tmp, "windowed"), "--epochs", "1",
+         "--pretrained-model", pretrained], device, wper,
+        tag="22 windowed entry")
+    assert [t for t, _ in wsteps] == [2] * 4, wsteps
+    assert wrun.pretrain["encoder_skipped"] > 0, wrun.pretrain
+    res["windowed"] = {"steps": len(wsteps), "pretrain": wrun.pretrain,
+                       "peak_gib": wpeak, "iteration_ms": float(np.mean(
+                           [1e3 * (w + s) for w, s in zip(
+                               wrun.wait_seconds[1:],
+                               wrun.step_seconds[1:])]))}
+    say("22 windowed entry", f"{ENTRY_WINDOWED_YAML}: {len(wsteps)} steps "
+        f"T=2 in {time.perf_counter() - t0:.1f} s; per step "
+        + ", ".join(f"{k} {n} x T" for k, n in wper.items())
+        + f" launches ok; pretrain from the deformable .pth "
+        f"{wrun.pretrain} (encoder skipped); "
+        f"{res['windowed']['iteration_ms']:.1f} ms an iteration after "
+        f"the first; peak {wpeak:.2f} GiB")
+    res["counts"] = {k: sum(c[k] for _, c in steps) for k in per_frame}
+    res["windowed_counts"] = {k: sum(c[k] for _, c in wsteps)
+                              for k in wper}
+    res["windowed_per_frame"] = wper
+    res["paths"] = {"tmp": tmp, "root": root, "yaml": yaml_path, "run": out,
+                    "pretrained": pretrained, "windowed_root": wroot,
+                    "windowed_yaml": wyaml}
+    return res
+
+
+# phase 23: the metrics' process pool must finish within this, so that a
+# deadlocked pool fails the phase instead of hanging the run
+EVAL_POOL_TIMEOUT = 300
+EVAL_SUMMARY = ("HOTA", "DetA", "AssA", "MOTA", "IDF1")
+# phase 24: the profiler range around each teacher forward
+TEACHER_RANGE = "distill teacher"
+TOP_KERNELS = 12
+
+
+def run_with_timeout(fn, seconds: float, what: str):
+    """``fn()`` on a daemon thread; raises if it has not returned within
+    ``seconds``."""
+    box = {}
+
+    def target():
+        try:
+            box["value"] = fn()
+        except BaseException as e:            # re-raised on this thread
+            box["error"] = e
+    th = threading.Thread(target=target, daemon=True)
+    th.start()
+    th.join(seconds)
+    if th.is_alive():
+        raise AssertionError(f"{what} did not finish within {seconds} s")
+    if "error" in box:
+        raise box["error"]
+    return box["value"]
+
+
+def phase_eval(device, paths):
+    """Phase 23: ``memotr_tpu_torch.main --mode eval`` on phase 22's run:
+    ``specific`` on checkpoint_1.pth, then ``continue`` over both epoch
+    checkpoints, on the val split (1920x1080 JPEGs at short side 800; 12 K1
+    launches a frame); then
+    the train split's GT scored as a tracker through
+    ``evaluate_mot_challenge`` with ``num_parallel`` 8 (a spawned pool of
+    2, after CUDA and the loader's and submitter's threads have run), which
+    must read 100.  Returns the numbers for the result line."""
+    import yaml
+
+    from memotr_tpu_torch.config import yaml_to_dict
+    from memotr_tpu_torch.data.seq_dataset import SeqDataset
+    from memotr_tpu_torch.engine import eval as port_eval
+    from memotr_tpu_torch.engine import submit as port_submit
+    from memotr_tpu_torch.main import main as port_main
+    from memotr_tpu_torch.metrics import evaluate_mot_challenge
+    tag = "23 eval"
+    root, out = paths["root"], paths["run"]
+    cfg = yaml_to_dict(paths["yaml"])
+    per_frame = cfg["NUM_ENC_LAYERS"] + cfg["NUM_DEC_LAYERS"]
+    val_names = [name for name, _ in ENTRY_VIDEOS["val"]]
+    canvas = SeqDataset(os.path.join(root, "DanceTrack", "val", val_names[0]),
+                        cfg["EVAL_SHORT_SIDE"], cfg["EVAL_MAX_SIDE"]
+                        ).padded_canvas()
+    n_frames = sum(n for _, n in ENTRY_VIDEOS["val"])
+    thresh = str(ENTRY_THRESH)
+    argv = ["--config-path", paths["yaml"], "--data-root", root,
+            "--mode", "eval", "--eval-dir", out, "--eval-data-split", "val",
+            "--det-score-thresh", thresh, "--track-score-thresh", thresh,
+            "--result-score-thresh", thresh, "--device", str(device)]
+    frame_s, metric_s = [], []
+    run, score = port_submit.Submitter.run, port_eval.evaluate_mot_challenge
+
+    def timed_run(self):
+        r = run(self)
+        frame_s.append(list(self.frame_seconds))
+        return r
+
+    def timed_score(*args, **kwargs):
         t0 = time.perf_counter()
-        root = os.path.join(tmp, "datasets")
-        write_tree(root, ENTRY_VIDEOS, seed=50)
-        yaml_path = os.path.join(tmp, "train_dancetrack.yaml")
-        entry_yaml(ENTRY_YAML, yaml_path)
-        cfg = yaml_to_dict(yaml_path)
-        pretrained = os.path.join(tmp, "pretrained.pth")
-        torch.save({"model": random_weights_(build_model(cfg)).state_dict()},
-                   pretrained)
-        say(tag, f"inputs: {sum(n for v in ENTRY_VIDEOS.values() for _, n in v)}"
-            f" JPEG frames {ENTRY_HW[1]}x{ENTRY_HW[0]} in "
-            f"{len(ENTRY_VIDEOS['train'])} train and "
-            f"{len(ENTRY_VIDEOS['val'])} val videos, a reference-format .pth "
-            f"of random_weights_ as PRETRAINED_MODEL, {ENTRY_YAML} with "
-            f"SAMPLE_STEPS {ENTRY_SAMPLE_STEPS} (NUM_WORKERS "
-            f"{cfg['NUM_WORKERS']}, DTYPE {cfg['DTYPE']}, SAMPLE_INTERVALS "
-            f"{cfg['SAMPLE_INTERVALS']}), in {time.perf_counter() - t0:.1f} s")
-        common = ["--config-path", yaml_path, "--data-root", root,
-                  "--pretrained-model", pretrained, "--epochs",
-                  str(ENTRY_EPOCHS)]
-        enc_dec = cfg["NUM_ENC_LAYERS"] + cfg["NUM_DEC_LAYERS"]
-        per_frame = {"msda_fwd": enc_dec, "msda_bwd": enc_dec,
-                     "window_attn_fwd": 0, "window_attn_bwd": 0}
-        out = os.path.join(tmp, "run")
+        m = score(*args, **kwargs)
+        metric_s.append(time.perf_counter() - t0)
+        return m
+
+    def no_sleep(seconds):
+        raise AssertionError(f"{tag}: continue mode waited for a checkpoint")
+    port_submit.Submitter.run = timed_run
+    port_eval.evaluate_mot_challenge = timed_score
+    sleep, port_eval.time.sleep = port_eval.time.sleep, no_sleep
+    res = {}
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
         t0 = time.perf_counter()
-        unbroken_adam = {(10, "after"): None}    # epoch 1's first step
-        run, steps, prof, peak = run_entry(
-            common + ["--mode", "train", "--outputs-dir", out], device,
-            per_frame, profile_step=12, adam=unbroken_adam)
+        metrics = port_main(argv + ["--eval-mode", "specific",
+                                    "--eval-model", "checkpoint_1.pth"])
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n = len(steps)
-        say(tag, f"trained {n} steps over {ENTRY_EPOCHS} epochs in "
-            f"{wall:.1f} s: T per step {[t for t, _ in steps]}; "
-            f"msda_fwd and msda_bwd {enc_dec} x T every step ok "
-            f"(totals {sum(c['msda_fwd'] for _, c in steps)} / "
-            f"{sum(c['msda_bwd'] for _, c in steps)})")
-        assert run.states == {"start_epoch": ENTRY_EPOCHS, "global_iters": n}
-        assert [t for t, _ in steps] == [2] * 10 + [3] * 8, steps
-        with open(os.path.join(out, "train", "scalars.jsonl")) as f:
-            scalars = [json.loads(line) for line in f]
-        assert len(scalars) == ENTRY_EPOCHS
-        for rec in scalars:
-            assert np.isfinite(rec["total_loss"]), rec
-        for e in range(ENTRY_EPOCHS):
-            assert os.path.exists(os.path.join(out, f"checkpoint_{e}.pth")), e
-        say(tag, f"scalars.jsonl total_loss {[r['total_loss'] for r in scalars]}"
-            f" (finite); checkpoint_0.pth and checkpoint_1.pth written")
-        check_moved(tag, run.trainer.model,
-                    torch.load(pretrained, weights_only=True)["model"])
-        pre = run.pretrain
-        assert pre["shape_mismatch"] == pre["encoder_skipped"] == 0, pre
-        # steady iterations: not the first of an epoch, not the profiled one
-        firsts = {0, 10}
-        steady = [i for i in range(n) if i not in firsts | {12}]
-        it_ms = [1e3 * (run.wait_seconds[i] + run.step_seconds[i])
-                 for i in steady]
-        wait_ms = [1e3 * run.wait_seconds[i] for i in steady]
-        share = sum(wait_ms) / sum(it_ms)
-        idle = 1 - prof["busy_ms"] / prof["wall_ms"]
-        res["train"] = {
-            "iteration_ms": float(np.mean(it_ms)),
-            "iteration_ms_by_T": {
-                t: float(np.mean([it_ms[j] for j, i in enumerate(steady)
-                                  if steps[i][0] == t])) for t in (2, 3)},
-            "loader_wait_ms": float(np.mean(wait_ms)),
-            "loader_wait_share": share,
-            "loader_first_wait_ms": [1e3 * run.wait_seconds[i]
-                                     for i in sorted(firsts)],
-            "peak_gib": peak, "idle_share": idle,
-            "profiled_wall_ms": prof["wall_ms"],
-            "profiled_busy_ms": prof["busy_ms"],
-            "steps": n, "pretrain": pre}
-        say(tag, f"host wall per steady iteration {np.mean(it_ms):.1f} ms "
-            f"(T=2 {res['train']['iteration_ms_by_T'][2]:.1f}, T=3 "
-            f"{res['train']['iteration_ms_by_T'][3]:.1f}; {len(steady)} "
-            f"iterations); loader wait {np.mean(wait_ms):.1f} ms an "
-            f"iteration, {share:.1%} of it (first iteration of each epoch: "
-            f"{res['train']['loader_first_wait_ms']} ms); peak device memory "
-            f"{peak:.2f} GiB")
-        say(tag, f"profiled iteration 12 (T=3): host wall {prof['wall_ms']:.1f}"
-            f" ms under the profiler, device busy {prof['busy_ms']:.1f} ms, "
-            f"idle share {idle:.3f}")
-        for k, v in sorted(prof["families"].items(), key=lambda kv: -kv[1]):
-            say(tag, f"  {k}: {v:.2f} ms ({v / prof['busy_ms']:.1%} of busy)")
+        counts = read_counts()
+        assert counts == {"msda_fwd": per_frame * n_frames, "msda_bwd": 0,
+                          "window_attn_fwd": 0, "window_attn_bwd": 0}, counts
+        val = os.path.join(out, "val")
+        tracker = os.path.join(val, "checkpoint_1_tracker")
+        assert sorted(os.listdir(tracker)) == sorted(
+            [f"{n}.txt" for n in val_names] + ["pedestrian_summary.txt"]), \
+            os.listdir(tracker)
+        assert not os.path.exists(os.path.join(val, "tracker"))
+        with open(os.path.join(val, "checkpoint_1_metrics.json")) as f:
+            np.testing.assert_equal(json.loads(f.read()),
+                                    {k: float(v) for k, v in metrics.items()})
+        for k in EVAL_SUMMARY:
+            assert np.isfinite(metrics[k]), (k, metrics[k])
+        ms = steady_ms(frame_s[0])
+        res["specific"] = {
+            "wall_s": wall, "canvas": list(canvas),
+            "frame_ms": float(np.mean(ms)),
+            "frame_ms_all": [1e3 * s for s in frame_s[0]],
+            "metrics_s_per_sequence": metric_s[0] / len(val_names),
+            "launches": counts["msda_fwd"],
+            **{k: float(metrics[k]) for k in EVAL_SUMMARY}}
+        say(tag, f"specific, checkpoint_1.pth: {wall:.1f} s; submit "
+            f"{np.mean(ms):.1f} ms a frame on the {canvas[0]}x{canvas[1]} "
+            f"canvas (frames 3-{n_frames}, pipelined); msda_fwd {counts['msda_fwd']} = {per_frame} x "
+            f"{n_frames} frames; metrics {metric_s[0]:.3f} s for "
+            f"{len(val_names)} sequence(s); "
+            + ", ".join(f"{k} {metrics[k]:.3f}" for k in EVAL_SUMMARY)
+            + " (finite); val/checkpoint_1_tracker/ with "
+            "pedestrian_summary.txt, val/checkpoint_1_metrics.json")
 
-        # resume from the epoch-0 checkpoint, epoch 1 only, twice: the
-        # second run is the first's noise witness
+        states_path = os.path.join(out, "eval_states.yaml")
+        assert not os.path.exists(states_path)
+        reset_counts()
         t0 = time.perf_counter()
-        resumed = []
-        for name in ("resumed", "resumed2"):
-            rdir = os.path.join(tmp, name)
-            radam = {(0, "before"): None, (0, "after"): None}
-            rrun, rsteps, _, _ = run_entry(
-                common + ["--mode", "train", "--outputs-dir", rdir,
-                          "--resume", os.path.join(out, "checkpoint_0.pth")],
-                device, per_frame, adam=radam)
-            assert [t for t, _ in rsteps] == [3] * 8, rsteps
-            assert rrun.states == run.states, (rrun.states, run.states)
-            assert not os.path.exists(os.path.join(rdir, "checkpoint_0.pth"))
-            with open(os.path.join(rdir, "train", "scalars.jsonl")) as f:
-                first = json.loads(f.readline())
-            resumed.append((load_checkpoint(
-                os.path.join(rdir, "checkpoint_1.pth")), first, radam))
-        (a, first, radam), (a2, _, radam2) = resumed
-        b = load_checkpoint(os.path.join(out, "checkpoint_1.pth"))
-        c = load_checkpoint(os.path.join(out, "checkpoint_0.pth"))
-        assert a["states"] == a2["states"] == b["states"] == run.states, \
-            (a["states"], b["states"])
-        want = scalars[1]
-        assert first["step"] == want["step"] == 10, (first, want)
-        losses = [k for k in want if k.endswith("loss")]
-        for k in losses:
-            assert abs(first[k] - want[k]) <= TRAIN_LOSS_RTOL * abs(want[k]), \
-                (k, first[k], want[k])
-        # the restored AdamW state: checkpoint_0's, bit for bit, when the
-        # resumed epoch starts; after its first step, the unbroken run's
-        # after the same step (the same state, gradients that differ in
-        # their last bits); after the epoch, the step counts
-        for st in (radam, radam2):
-            restored, saved = st[0, "before"], c["optimizer"]["state"]
-            assert restored.keys() == saved.keys() and len(saved) > 0
-            for i in saved:
-                for k, v in saved[i].items():
-                    assert torch.equal(restored[i][k], v.cpu()), (i, k)
-        v_first = exp_avg_sq_rel_diff(radam[0, "after"],
-                                      unbroken_adam[10, "after"])
-        v_first_witness = exp_avg_sq_rel_diff(radam2[0, "after"],
-                                              radam[0, "after"])
-        v_epoch = exp_avg_sq_rel_diff(a["optimizer"]["state"],
-                                      b["optimizer"]["state"])
-        v_epoch_witness = exp_avg_sq_rel_diff(a2["optimizer"]["state"],
-                                              a["optimizer"]["state"])
-        steps_b = sorted({int(st["step"])
-                          for st in b["optimizer"]["state"].values()})
-        names = [k for k, p in run.trainer.model.named_parameters()
-                 if p.requires_grad]
-        moved = torch.cat([(b["model"][k] - c["model"][k]).flatten()
-                           for k in names])
+        port_main(argv + ["--eval-mode", "continue",
+                          "--epochs", str(ENTRY_EPOCHS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        port_submit.Submitter.run = run
+        port_eval.evaluate_mot_challenge = score
+        port_eval.time.sleep = sleep
+    assert counts["msda_fwd"] == per_frame * n_frames * ENTRY_EPOCHS, counts
+    with open(states_path) as f:
+        assert yaml.safe_load(f) == {"last": ENTRY_EPOCHS - 1}
+    by_epoch = {}
+    for e in range(ENTRY_EPOCHS):
+        assert os.path.isfile(os.path.join(val, f"checkpoint_{e}_tracker",
+                                           "pedestrian_summary.txt")), e
+        with open(os.path.join(val, f"checkpoint_{e}_metrics.json")) as f:
+            m = json.loads(f.read())
+        for k in EVAL_SUMMARY:
+            assert np.isfinite(m[k]), (e, k, m[k])
+        by_epoch[e] = {k: m[k] for k in EVAL_SUMMARY}
+    with open(os.path.join(val, "scalars.jsonl")) as f:
+        steps = [json.loads(line)["step"] for line in f]
+    assert steps == [1] + list(range(ENTRY_EPOCHS)), steps
+    same = by_epoch[1] == {k: res["specific"][k] for k in EVAL_SUMMARY}
+    res["continue"] = {"wall_s": wall, "launches": counts["msda_fwd"],
+                       "metrics": by_epoch, "checkpoint_1_as_specific": same}
+    say(tag, f"continue over checkpoint_0.pth and checkpoint_1.pth: {wall:.1f}"
+        f" s; msda_fwd {counts['msda_fwd']} = {per_frame} x {n_frames} x "
+        f"{ENTRY_EPOCHS}; eval_states.yaml last {ENTRY_EPOCHS - 1}; HOTA by "
+        f"epoch {[by_epoch[e]['HOTA'] for e in range(ENTRY_EPOCHS)]}; "
+        f"checkpoint_1 as in specific mode: {same}")
 
-        def param_diff(x, y):
-            d = torch.cat([(x["model"][k] - y["model"][k]).flatten()
-                           for k in names])
-            return float(d.abs().max()), float(d.norm() / moved.norm())
+    # the train split's GT as a tracker: a pool of 2 after CUDA is up
+    gt_dir = os.path.join(root, "DanceTrack", "train")
+    as_tracker = os.path.join(paths["tmp"], "gt_as_tracker")
+    os.makedirs(as_tracker)
+    for name, _ in ENTRY_VIDEOS["train"]:
+        shutil.copy(os.path.join(gt_dir, name, "gt", "gt.txt"),
+                    os.path.join(as_tracker, f"{name}.txt"))
+    t0 = time.perf_counter()
+    pooled = run_with_timeout(
+        lambda: evaluate_mot_challenge(gt_dir, as_tracker, num_parallel=8),
+        EVAL_POOL_TIMEOUT, f"{tag}: the metrics' process pool")
+    pool_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serial = evaluate_mot_challenge(gt_dir, as_tracker, num_parallel=1)
+    serial_s = time.perf_counter() - t0
+    for k in ("HOTA", "MOTA", "IDF1"):
+        assert abs(pooled[k] - 100.0) <= 1e-9, (k, pooled[k])
+    assert pooled == serial
+    res["gt_as_tracker"] = {"pool_s": pool_s, "serial_s": serial_s,
+                            "sequences": len(ENTRY_VIDEOS["train"]),
+                            **{k: pooled[k] for k in ("HOTA", "MOTA",
+                                                      "IDF1")}}
+    say(tag, f"train GT scored as a tracker, num_parallel 8 (a spawned pool "
+        f"of {len(ENTRY_VIDEOS['train'])}): HOTA {pooled['HOTA']}, MOTA "
+        f"{pooled['MOTA']}, IDF1 {pooled['IDF1']}; pool wall {pool_s:.2f} s "
+        f"(in this process: {serial_s:.2f} s, the same dict)")
+    return res
 
-        worst, rel = param_diff(a, b)
-        noise_worst, noise_rel = param_diff(a, a2)
-        bound = RESUME_STEP_BOUND * cfg["LR"] * 8
-        res["resume"] = {
-            "max_abs_diff": worst, "bound": bound, "rel_l2_of_update": rel,
-            "witness_max_abs_diff": noise_worst,
-            "witness_rel_l2_of_update": noise_rel,
-            "adam_steps": steps_b,
-            "exp_avg_sq_first_step_rel_diff": v_first,
-            "exp_avg_sq_first_step_witness": v_first_witness,
-            "exp_avg_sq_rtol": RESUME_V_RTOL,
-            "exp_avg_sq_epoch_rel_diff": v_epoch,
-            "exp_avg_sq_epoch_witness": v_epoch_witness}
-        say(tag, f"resume from checkpoint_0.pth, twice: 8 steps of epoch 1 "
-            f"each, {time.perf_counter() - t0:.1f} s both; states "
-            f"{a['states']} as the unbroken run's; the first iteration's "
-            f"{len(losses)} losses equal the unbroken run's (total_loss "
-            f"{first['total_loss']} vs {want['total_loss']}); AdamW state "
-            f"at the resumed epoch's start equals checkpoint_0's bit for "
-            f"bit; after its first step, exp_avg_sq sums within "
-            f"{v_first:.3e} of the unbroken run's (rtol {RESUME_V_RTOL:.3e}; "
-            f"second resumed run vs the first {v_first_witness:.3e}); after "
-            f"the epoch, step counts {steps_b} equal for all "
-            f"{len(b['optimizer']['state'])} parameters, exp_avg_sq sums "
-            f"within {v_epoch:.3e} (witness {v_epoch_witness:.3e}); "
-            f"parameters vs the unbroken run: max |diff| {worst:.3e} (bound "
-            f"{bound:.1e}), L2 {rel:.3e} of epoch 1's update; second resumed "
-            f"run vs the first (noise witness): max |diff| {noise_worst:.3e},"
-            f" L2 {noise_rel:.3e}")
-        assert v_first <= RESUME_V_RTOL, (v_first, RESUME_V_RTOL)
-        assert worst <= bound, (worst, bound)
 
-        # submit the val split from checkpoint_1.pth
-        t0 = time.perf_counter()
-        thresh = str(ENTRY_THRESH)
-        from memotr_tpu_torch.main import main as port_main
-        port_main(["--config-path", yaml_path, "--data-root", root,
-                   "--mode", "submit", "--submit-dir", out, "--submit-model",
-                   "checkpoint_1.pth", "--submit-data-split", "val",
-                   "--det-score-thresh", thresh, "--track-score-thresh",
-                   thresh, "--result-score-thresh", thresh,
-                   "--device", str(device)])
-        txts = mot_lines(out, "val")
-        want = [f"{name}.txt" for name, _ in ENTRY_VIDEOS["val"]]
-        assert list(txts) == want, txts
-        for name, rows in txts.items():
-            assert rows, f"{name}: no MOT lines"
-            assert {r[0] for r in rows} <= set(range(1, 7)), name
-        decode = SeqDataset(os.path.join(root, "DanceTrack", "val",
-                                         ENTRY_VIDEOS["val"][0][0])).decode_path
-        assert decode == ("native" if native.available() else "python")
-        res["submit"] = {"lines": {k: len(v) for k, v in txts.items()},
-                         "decode": decode,
-                         "native_unavailable": None if native.available()
-                         else native.unavailable_reason()}
-        say(tag, f"submit from checkpoint_1.pth in "
-            f"{time.perf_counter() - t0:.1f} s: "
-            + ", ".join(f"{k} {len(v)} MOT lines" for k, v in txts.items())
-            + f" (thresholds {thresh}); frames decoded by the {decode} path"
-            + ("" if native.available() else
-               f" (native data plane unavailable here: "
-               f"{native.unavailable_reason()})"))
+def phase_distill(device, paths, windowed_per_frame, no_teacher_ms):
+    """Phase 24: the windowed flagship of phase 22 (the same tree, YAML and
+    pretrained .pth) learns from phase 22's deformable checkpoint_1.pth
+    through ``memotr_tpu_torch.main --mode train --distill-teacher``: 4
+    steps at T=2, each with the teacher's K1 forward launches on top of
+    the windowed run's; finite distillation terms above 0 every step, the
+    teacher untouched and outside the student.  Returns the numbers for
+    the result line."""
+    from torch.profiler import record_function
 
-        # the Data layer alone: every training clip of each epoch, loaded
-        # once on this thread
-        dataset = build_dataset(dict(cfg, DATA_ROOT=root), split="train")
-        clip_ms = {}
-        for epoch in range(ENTRY_EPOCHS):
-            dataset.set_epoch(epoch)
-            ms = []
-            for j in range(len(dataset)):
-                t0 = time.perf_counter()
-                clip = dataset.get(j)
-                ms.append((time.perf_counter() - t0) * 1e3)
-            clip_ms[len(clip["imgs"])] = ms
-        res["data"] = {"clip_ms_by_T": {t: float(np.mean(v))
-                                        for t, v in clip_ms.items()},
-                       "frame_ms": float(np.mean([m / t for t, v in
-                                                  clip_ms.items()
-                                                  for m in v])),
-                       "clips": sum(len(v) for v in clip_ms.values())}
-        say(tag, "Data layer: ClipDataset.get on one host thread, "
-            + ", ".join(f"T={t}: {np.mean(v):.1f} ms a clip over {len(v)}"
-                        for t, v in clip_ms.items())
-            + f"; {res['data']['frame_ms']:.1f} ms a {ENTRY_HW[1]}x"
-            f"{ENTRY_HW[0]} frame (decode, MOTR_SCALES transforms)")
+    from memotr_tpu_torch.checkpoint.files import load_checkpoint
+    from memotr_tpu_torch.config import yaml_to_dict
+    from memotr_tpu_torch.engine import trainer as port_trainer
+    tag = "24 distill"
+    teacher_path = os.path.join(paths["run"], "checkpoint_1.pth")
+    t_cfg = yaml_to_dict(os.path.join(paths["run"], "train", "config.yaml"))
+    t_frame = t_cfg["NUM_ENC_LAYERS"] + t_cfg["NUM_DEC_LAYERS"]
+    per_frame = dict(windowed_per_frame,
+                     msda_fwd=windowed_per_frame["msda_fwd"] + t_frame)
+    out = os.path.join(paths["tmp"], "distilled")
+    argv = ["--config-path", paths["windowed_yaml"], "--data-root",
+            paths["windowed_root"], "--mode", "train", "--epochs", "1",
+            "--pretrained-model", paths["pretrained"]]
+    steady = [1, 2]          # not the first, not the profiled one (3)
 
-        # the windowed flagship through the same entry: one 5-frame video
-        wroot = os.path.join(tmp, "windowed_data")
-        write_tree(wroot, ENTRY_WINDOWED_VIDEOS, seed=70)
-        wyaml = os.path.join(tmp, "train_dancetrack_windowed.yaml")
-        entry_yaml(ENTRY_WINDOWED_YAML, wyaml)
-        wcfg = yaml_to_dict(wyaml)
-        levels = wcfg["NUM_ENC_LAYERS"] * wcfg["NUM_FEATURE_LEVELS"]
-        wper = {"window_attn_fwd": levels, "window_attn_bwd": levels,
-                "msda_fwd": wcfg["NUM_DEC_LAYERS"],
-                "msda_bwd": wcfg["NUM_DEC_LAYERS"]}
-        t0 = time.perf_counter()
-        wrun, wsteps, _, wpeak = run_entry(
-            ["--config-path", wyaml, "--data-root", wroot, "--mode", "train",
-             "--outputs-dir", os.path.join(tmp, "windowed"), "--epochs", "1",
-             "--pretrained-model", pretrained], device, wper,
-            tag="22 windowed entry")
-        assert [t for t, _ in wsteps] == [2] * 4, wsteps
-        assert wrun.pretrain["encoder_skipped"] > 0, wrun.pretrain
-        res["windowed"] = {"steps": len(wsteps), "pretrain": wrun.pretrain,
-                           "peak_gib": wpeak, "iteration_ms": float(np.mean(
-                               [1e3 * (w + s) for w, s in zip(
-                                   wrun.wait_seconds[1:],
-                                   wrun.step_seconds[1:])]))}
-        say("22 windowed entry", f"{ENTRY_WINDOWED_YAML}: {len(wsteps)} steps "
-            f"T=2 in {time.perf_counter() - t0:.1f} s; per step "
-            + ", ".join(f"{k} {n} x T" for k, n in wper.items())
-            + f" launches ok; pretrain from the deformable .pth "
-            f"{wrun.pretrain} (encoder skipped); "
-            f"{res['windowed']['iteration_ms']:.1f} ms an iteration after "
-            f"the first; peak {wpeak:.2f} GiB")
-        res["counts"] = {k: sum(c[k] for _, c in steps) for k in per_frame}
-        res["windowed_counts"] = {k: sum(c[k] for _, c in wsteps)
-                                  for k in wper}
+    def iteration_ms(run):
+        return float(np.mean([1e3 * (run.wait_seconds[i]
+                                     + run.step_seconds[i]) for i in steady]))
+
+    def without_teacher(name):
+        """The same windowed run without a teacher (in turns with the
+        distilled one: before and after it)."""
+        run, _, prof, _ = run_entry(
+            argv + ["--outputs-dir", os.path.join(paths["tmp"], name)],
+            device, windowed_per_frame, profile_step=3, tag=tag)
+        return iteration_ms(run), prof["busy_ms"]
+
+    base_before = without_teacher("undistilled_before")
+    forward, last_call, host_s = port_trainer.model_forward, [], []
+
+    def teacher_forward(*args):
+        last_call[:] = args
+        t = time.perf_counter()
+        with record_function(TEACHER_RANGE):
+            out = forward(*args)
+        host_s.append(time.perf_counter() - t)
+        return out
+    port_trainer.model_forward = teacher_forward
+    terms = []
+    t0 = time.perf_counter()
+    try:
+        run, steps, prof, peak = run_entry(
+            argv + ["--outputs-dir", out, "--distill-teacher", teacher_path],
+            device, per_frame, profile_step=3, tag=tag,
+            keep=port_trainer.DISTILL_KEYS, kept=terms)
+    finally:
+        port_trainer.model_forward = forward
+    wall = time.perf_counter() - t0
+    base_after = without_teacher("undistilled_after")
+    # the teacher's forward alone, warm, on the last frame it saw
+    with torch.no_grad():
+        alone = device_ms_by_kernel(lambda: forward(*last_call), calls=3)
+    alone_ms = sum(ms for ms, _ in alone.values())
+    alone_top = sorted(((k, ms) for k, (ms, _) in alone.items()),
+                       key=lambda kv: -kv[1])[:TOP_KERNELS]
+    assert [t for t, _ in steps] == [2] * 4, steps
+    assert len(terms) == 4
+    for i, rec in enumerate(terms):
+        for k, v in rec.items():
+            assert np.isfinite(v) and v > 0, (i, k, v)
+    with open(os.path.join(out, "train", "scalars.jsonl")) as f:
+        for rec in map(json.loads, f):
+            for k in port_trainer.DISTILL_KEYS:
+                assert np.isfinite(rec[k]) and rec[k] > 0, (k, rec)
+    teacher = run.trainer.distill["model"]
+    saved = load_checkpoint(teacher_path)["model"]
+    for k, v in teacher.state_dict().items():
+        assert torch.equal(v.cpu(), saved[k]), k
+    assert not teacher.training
+    assert all(not p.requires_grad and p.grad is None
+               for p in teacher.parameters())
+    in_opt = {id(p) for g in run.trainer.optimizer.param_groups
+              for p in g["params"]}
+    assert not in_opt & {id(p) for p in teacher.parameters()}
+    ckpt = load_checkpoint(os.path.join(out, "checkpoint_0.pth"))
+    assert set(ckpt["model"]) == set(run.trainer.model.state_dict())
+    it_ms = iteration_ms(run)
+    # the host's dispatch of one teacher forward (it returns before the
+    # device finishes), over the steady steps' frames
+    host_ms = 1e3 * float(np.mean([host_s[2 * i + f] for i in steady
+                                   for f in range(2)]))
+    idle = 1 - prof["busy_ms"] / prof["wall_ms"]
+    share = prof["teacher_ms"] / prof["busy_ms"]
+    res = {"steps": len(steps), "wall_s": wall, "iteration_ms": it_ms,
+           "iteration_ms_without_teacher": [base_before[0], base_after[0]],
+           "iteration_ms_phase22_windowed": no_teacher_ms, "peak_gib": peak,
+           "profiled_wall_ms": prof["wall_ms"],
+           "profiled_busy_ms": prof["busy_ms"], "idle_share": idle,
+           "profiled_busy_ms_without_teacher": [base_before[1],
+                                                base_after[1]],
+           "teacher_device_ms": prof["teacher_ms"], "teacher_share": share,
+           "teacher_alone_device_ms": alone_ms,
+           "teacher_host_ms_per_frame": host_ms,
+           "teacher_alone_top_kernels": alone_top,
+           "top_kernels": prof["top_kernels"], "terms": terms,
+           "counts": {k: sum(c[k] for _, c in steps) for k in per_frame}}
+    say(tag, f"{ENTRY_WINDOWED_YAML} learns from checkpoint_1.pth "
+        f"({t_cfg.get('ENCODER_TYPE', 'deformable')}): {len(steps)} steps "
+        f"T=2 in {wall:.1f} s; per step "
+        + ", ".join(f"{k} {n} x T" for k, n in per_frame.items())
+        + f" launches ok (msda_fwd {t_frame} x T above phase 22's windowed "
+        f"run); distill terms every step finite and > 0: "
+        + "; ".join(", ".join(f"{k[8:]} {v:.4g}" for k, v in rec.items())
+                    for rec in terms)
+        + f"; the teacher untouched, frozen and outside the optimizer and the "
+        f"checkpoint; {it_ms:.1f} ms an iteration (steps 1-2; the same run "
+        f"without a teacher, before and after: {base_before[0]:.1f}, "
+        f"{base_after[0]:.1f}; phase 22's, its first on these canvases: "
+        f"{no_teacher_ms:.1f}); the host's dispatch of a teacher forward "
+        f"{host_ms:.1f} ms (steps 1-2); peak {peak:.2f} GiB")
+    say(tag, f"profiled step 3: host wall {prof['wall_ms']:.1f} ms, device "
+        f"busy {prof['busy_ms']:.1f} ms (without a teacher "
+        f"{base_before[1]:.1f}, {base_after[1]:.1f}), idle share "
+        f"{idle:.3f}; the teacher's forwards {prof['teacher_ms']:.2f} ms of "
+        f"device time, {share:.1%} of busy; one teacher forward alone, warm, "
+        f"on the last frame it saw: {alone_ms:.2f} ms of device time")
+    for k, v in sorted(prof["families"].items(), key=lambda kv: -kv[1]):
+        say(tag, f"  {k}: {v:.2f} ms ({v / prof['busy_ms']:.1%} of busy)")
+    for name, ms, n in prof["top_kernels"]:
+        say(tag, f"  step kernel {ms:.2f} ms x{n}: {name[:150]}")
+    for name, ms in alone_top:
+        say(tag, f"  teacher-alone kernel {ms:.3f} ms: {name[:150]}")
     return res
 
 
@@ -2213,9 +2595,18 @@ def main() -> int:
                     device, "21 hybrid train f32", HYBRID_TRAIN_CONFIG,
                     WINDOWED_TRAIN_NORM_RTOL)
     say("21 hybrid train f32", f"done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    entry = phase_train_entry(device)
-    say("22 train entry", f"done in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        entry = phase_train_entry(device, tmp)
+        say("22 train entry", f"done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        evaluated = phase_eval(device, entry["paths"])
+        say("23 eval", f"done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        distilled = phase_distill(device, entry["paths"],
+                                  entry["windowed_per_frame"],
+                                  entry["windowed"]["iteration_ms"])
+        say("24 distill", f"done in {time.perf_counter() - t0:.1f} s")
     say("all", f"{time.perf_counter() - t_all:.1f} s")
 
     k1, k2 = k1_times["encoder"], k2_times["window_l0"]
@@ -2224,6 +2615,11 @@ def main() -> int:
         "config": ENTRY_YAML, "card": card, **entry["train"],
         "resume": entry["resume"], "submit": entry["submit"],
         "data": entry["data"], "windowed": entry["windowed"]}}), flush=True)
+    print(json.dumps({"eval": {"config": ENTRY_YAML, "card": card,
+                               **evaluated},
+                      "distill": {"config": ENTRY_WINDOWED_YAML,
+                                  "teacher": ENTRY_YAML, "card": card,
+                                  **distilled}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": "msda_fwd", "route": "cuda", "source": K1_SRC,
@@ -2238,6 +2634,9 @@ def main() -> int:
          "launches_train_conv": conv_train_counts["msda_fwd"],
          "launches_train_entry": entry["counts"]["msda_fwd"],
          "launches_train_entry_windowed": entry["windowed_counts"]["msda_fwd"],
+         "launches_eval": evaluated["specific"]["launches"]
+         + evaluated["continue"]["launches"],
+         "launches_distill": distilled["counts"]["msda_fwd"],
          "encoder_b2": {k: k1_times["encoder_b2"][k] for k in (
              "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
              "bound_by")}},
@@ -2254,6 +2653,7 @@ def main() -> int:
          "launches_batched": win_batched_counts["window_attn_fwd"],
          "launches_train_entry_windowed":
              entry["windowed_counts"]["window_attn_fwd"],
+         "launches_distill": distilled["counts"]["window_attn_fwd"],
          **{case: {k: k2_times[case][k] for k in (
              "ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
              "library_device_ms", "bound_ms", "bound_by")}
@@ -2272,7 +2672,8 @@ def main() -> int:
          "launches_train_fwd": train_counts["msda_fwd"],
          "launches_train_windowed": win_counts["msda_bwd"],
          "launches_train_entry": entry["counts"]["msda_bwd"],
-         "launches_train_entry_windowed": entry["windowed_counts"]["msda_bwd"]},
+         "launches_train_entry_windowed": entry["windowed_counts"]["msda_bwd"],
+         "launches_distill": distilled["counts"]["msda_bwd"]},
         {"name": "window_attn_bwd", "route": "cuda", "source": K2B_SRC,
          "replaces": K2B_TPU, "launches": win_counts["window_attn_bwd"],
          "launches_per_step": {
@@ -2280,6 +2681,7 @@ def main() -> int:
              "hybrid": [c["window_attn_bwd"] for c in hyb_steps]},
          "launches_train_entry_windowed":
              entry["windowed_counts"]["window_attn_bwd"],
+         "launches_distill": distilled["counts"]["window_attn_bwd"],
          "max_abs_err": k2b_err, "ms": k2b["ms"],
          "device_ms": k2b["device_ms"],
          "kernel_device_ms": k2b["kernel_device_ms"],

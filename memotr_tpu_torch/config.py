@@ -83,7 +83,10 @@ _DEFAULTS = {
     "TRAIN_MAX_SIZE": 1536,
     "MULTI_CHECKPOINT": False,
     "PRETRAIN_SKIP_ENCODER": None,  # None: skip iff ENCODER_TYPE != deformable
-    "DISTILL_TEACHER": None,
+    "DISTILL_TEACHER": None,      # an epoch checkpoint (.pth) of the port
+    "DISTILL_WEIGHT_MEMORY": 1.0,
+    "DISTILL_WEIGHT_LOGIT": 1.0,
+    "DISTILL_WEIGHT_BOX": 1.0,
     # TPU knobs, accepted on the command line as JAX's CLI accepts them
     "MSDA_IMPL": "auto",
     "MESH_DEVICES": None,

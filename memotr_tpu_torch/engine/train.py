@@ -2,15 +2,15 @@
 
 ``train(config)``: the logger and the resolved ``config.yaml`` (which
 ``submit()`` reads back), seeding, the model and its pretrained weights,
-the dataset and the threaded loader, one ``Trainer``, ``RESUME``, then the
+the distillation teacher (``DISTILL_TEACHER``, ``load_teacher``), the
+dataset and the threaded loader, one ``Trainer``, ``RESUME``, then the
 epoch loop (curriculum, LR schedule, accumulation and warmup as the
 ``Trainer`` counts them) with the reference's checkpoint policy.  Runs on
 the GPU unless ``device="cpu"``; never falls back to the CPU.
 
-Not ported, and refused: distillation (``DISTILL_TEACHER``, ROADMAP item
-6), debug dumps (``VISUALIZE``) and the TPU mesh keys (``MESH_DEVICES``,
-``MESH_SEQ_DEVICES`` above 1, ``TOKEN_SHARD_AXIS``); one process trains on
-one device (data parallelism is ROADMAP item 9).
+Not ported, and refused: debug dumps (``VISUALIZE``) and the TPU mesh keys
+(``MESH_DEVICES``, ``MESH_SEQ_DEVICES`` above 1, ``TOKEN_SHARD_AXIS``);
+one process trains on one device (data parallelism is ROADMAP item 9).
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ import torch
 from ..checkpoint.files import (host_rng_state, load_checkpoint,
                                 remap_pretrained_dab, save_checkpoint,
                                 set_host_rng_state)
-from ..config import cfg_get, dict_to_yaml
+from ..config import cfg_get, dict_to_yaml, yaml_to_dict
 from ..data import build_dataloader, build_dataset
 from ..log.logger import Logger, MetricLog
 from ..models.memotr import build_model
@@ -47,10 +47,6 @@ def _units(name: str) -> int:
 
 def check_train_options(config: dict) -> None:
     check_options(config)
-    if cfg_get(config, "DISTILL_TEACHER"):
-        raise NotImplementedError("DISTILL_TEACHER (distillation) is not "
-                                  "ported to PyTorch (ROADMAP.md, queue 1 "
-                                  "item 6)")
     for key in ("MESH_DEVICES", "MESH_SEQ_DEVICES"):
         if cfg_get(config, key) not in (None, 1):
             raise NotImplementedError(
@@ -120,9 +116,47 @@ def load_pretrained(config: dict, model: torch.nn.Module, logger: Logger
     return stats
 
 
+def load_teacher(config: dict, logger: Logger) -> Optional[Dict]:
+    """The distillation teacher of ``DISTILL_TEACHER`` (None when unset):
+    ``{"model", "weights"}`` as ``Trainer`` takes it.
+
+    The file is an epoch checkpoint of the port (``.pth`` with
+    ``"states"``), loaded strictly into ``build_model`` of the teacher's
+    own config, ``train/config.yaml`` beside it; the teacher must share
+    ``HIDDEN_DIM`` and ``NUM_DET_QUERIES`` with the student.  The weights
+    are ``DISTILL_WEIGHT_MEMORY`` / ``_LOGIT`` / ``_BOX``."""
+    path = cfg_get(config, "DISTILL_TEACHER")
+    if not path:
+        return None
+    if os.path.isdir(path):
+        raise ValueError(f"DISTILL_TEACHER {path} is a directory: the port "
+                         f"reads its own epoch checkpoints (.pth; a JAX "
+                         f"Orbax checkpoint converts with state_dict_from_jax)")
+    t_config = yaml_to_dict(os.path.join(
+        os.path.dirname(os.path.abspath(path)), "train", "config.yaml"))
+    for key in ("HIDDEN_DIM", "NUM_DET_QUERIES"):
+        if t_config[key] != config[key]:
+            raise ValueError(f"distillation teacher {path} has {key} "
+                             f"{t_config[key]}, the student {config[key]}")
+    ckpt = load_checkpoint(path)
+    if "states" not in ckpt:
+        raise ValueError(f"DISTILL_TEACHER {path} is not an epoch checkpoint "
+                         f"of the port (no 'states')")
+    teacher = build_model(t_config)
+    teacher.load_state_dict(ckpt["model"])
+    weights = {f"distill_{k}": float(cfg_get(config,
+                                             f"DISTILL_WEIGHT_{k.upper()}"))
+               for k in ("memory", "logit", "box")}
+    logger.show(head=f"Distillation: teacher={path} "
+                     f"({cfg_get(t_config, 'ENCODER_TYPE')} encoder), "
+                     f"weights={weights}")
+    return {"model": teacher, "weights": weights}
+
+
 @dataclass
 class TrainRun:
-    """What ``train`` returns: the trainer (model and optimizer), the
+    """What ``train`` returns: the trainer (model, optimizer and, as
+    ``trainer.distill``, the distillation teacher), the
     progress ``states``, the pretrain-merge counts, and per iteration the
     seconds the loop waited for the loader and the seconds of the step
     (from the batch's arrival to its logs on the host)."""
@@ -150,12 +184,14 @@ def train(config: dict, device: torch.device | str = "cuda") -> TrainRun:
 
     model = build_model(config)
     pretrain = load_pretrained(config, model, logger)
+    distill = load_teacher(config, logger)
 
     dataset = build_dataset(config, split="train")
     dataloader = build_dataloader(dataset, config, shuffle=True)
     logger.show(head="Frame decode:", log="PIL (training clips are decoded "
                 "and augmented on the host by PIL and cv2)")
-    trainer = Trainer(model, config, device, seed=config["SEED"])
+    trainer = Trainer(model, config, device, seed=config["SEED"],
+                      distill=distill)
 
     states = {"start_epoch": 0, "global_iters": 0}
     if config.get("RESUME"):

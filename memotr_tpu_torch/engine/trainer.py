@@ -17,6 +17,10 @@
   frames through the track state; the first ``NO_GRAD_FRAMES`` frames run
   under ``torch.no_grad()``; the last frame skips the track selection and
   the query updater.
+- **Distillation** (``DISTILL_TEACHER``, ``engine/train.py`` loads the
+  teacher): a frozen teacher runs each frame under ``torch.no_grad()`` on
+  empty track slots, and ``distill_frame_losses`` adds its weighted terms,
+  averaged over the clip's frames, to the loss.
 
 ``Trainer`` is the entry: it takes a collated clip batch
 (``data/loader.collate_clips``), runs on the GPU unless asked for the CPU,
@@ -32,16 +36,18 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import cfg_get
 from ..models.criterion import ClipCriterion, FrameGT, build_criterion
-from ..models.frame_step import train_frame_step
+from ..models.frame_step import model_forward, train_frame_step
 from ..structures.track_state import TrackState
 from .submit import resolve_device
 
 LOSS_WEIGHT_KEYS = ("label_focal_loss", "box_l1_loss", "box_giou_loss")
 GROUPS = ("backbone", "points", "query_updater", "base")
+DISTILL_KEYS = ("distill_memory", "distill_logit", "distill_box")
 
 
 # --------------------------------------------------------------- param groups
@@ -170,11 +176,63 @@ def static_config(config: dict, model, world_size: int = 1) -> Dict:
     }
 
 
+# --------------------------------------------------------------- distillation
+def distill_frame_losses(out: Dict[str, torch.Tensor],
+                         t_out: Dict[str, torch.Tensor], n_det: int
+                         ) -> Dict[str, torch.Tensor]:
+    """One frame's teacher->student terms (the JAX package's
+    ``distill_frame_losses``), in float32:
+
+    - ``distill_memory``: the MSE between the encoders' memories over the
+      valid (unpadded) tokens;
+    - ``distill_logit``: the sigmoid BCE of the student's detection logits
+      against the teacher's probabilities (soft targets);
+    - ``distill_box``: the L1 between the detection queries' boxes,
+      weighted by the teacher's confidence, so that background queries do
+      not dominate."""
+    valid = (~out["memory_mask"])[..., None].float()
+    s_mem, t_mem = out["memory"].float(), t_out["memory"].float()
+    mem = (valid * (s_mem - t_mem) ** 2).sum() / (
+        valid.sum().clamp(min=1.0) * s_mem.shape[-1])
+
+    s_log = out["pred_logits"][:, :n_det].float()
+    t_prob = torch.sigmoid(t_out["pred_logits"][:, :n_det].float())
+    logit = F.binary_cross_entropy_with_logits(s_log, t_prob)
+
+    conf = t_prob.amax(dim=-1)                                  # (B, Nd)
+    l1 = (out["pred_boxes"][:, :n_det].float()
+          - t_out["pred_boxes"][:, :n_det].float()).abs().sum(dim=-1)
+    box = (conf * l1).sum() / conf.sum().clamp(min=1e-6)
+    return {"distill_memory": mem, "distill_logit": logit,
+            "distill_box": box}
+
+
+def frame_distiller(distill: Dict, model, cs: Dict, b: int,
+                    device: torch.device) -> Callable:
+    """``distill(out, images, mask)`` for ``train_frame_step``: the
+    teacher's forward under ``torch.no_grad()`` on empty track slots (the
+    memory and the detection queries' outputs do not depend on live
+    tracks), then ``distill_frame_losses``."""
+    t_state = TrackState.empty(b, cs["track_slots"], cs["hidden_dim"],
+                               cs["num_classes"], use_dab=cs["use_dab"],
+                               device=device)
+
+    def terms(out, images, mask):
+        with torch.no_grad():
+            t_out = model_forward(distill["model"], images, mask, t_state)
+        return distill_frame_losses(out, t_out, model.n_det_queries)
+    return terms
+
+
 def clip_loss(model, criterion: ClipCriterion, batch: Dict[str, torch.Tensor],
-              generator: torch.Generator, cs: Dict
+              generator: torch.Generator, cs: Dict,
+              distill: Optional[Dict] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Loss over one clip batch: images (B, T, H, W, 3) normalized, mask
     (B, T, H, W), gt_* (B, T, G, ...), all on the model's device.
+    ``distill``: None, or ``{"model": teacher, "weights": {term: w}}``;
+    each frame's terms add ``w * v / T`` to the total and ``v / T`` to
+    their log, no-grad frames included (as constants).
     Returns (total loss, logs)."""
     images = batch["images"]
     b, t = images.shape[:2]
@@ -184,6 +242,9 @@ def clip_loss(model, criterion: ClipCriterion, batch: Dict[str, torch.Tensor],
     loss_acc: Dict[str, torch.Tensor] = {}
     frame_logs: Dict[str, torch.Tensor] = {}
     n_gts_total = torch.zeros((), device=images.device)
+    distill_acc = torch.zeros((), device=images.device)
+    terms = None if distill is None else frame_distiller(
+        distill, model, cs, b, images.device)
     world = cs["world_size"]
     k = cs["no_grad_frames"]
     for f in range(t):
@@ -195,7 +256,13 @@ def clip_loss(model, criterion: ClipCriterion, batch: Dict[str, torch.Tensor],
                 model, criterion, images[:, f], batch["mask"][:, f], gt,
                 state, generator, cs["update_threshold"], cs["tp_drop_ratio"],
                 cs["fp_insert_ratio"], no_augment=f < k - 1,
-                postprocess=f < t - 1)
+                postprocess=f < t - 1, distill=terms)
+        for name in DISTILL_KEYS:
+            if name in losses:
+                v = losses.pop(name)
+                distill_acc = distill_acc \
+                    + distill["weights"].get(name, 1.0) * v / t
+                frame_logs[name] = frame_logs.get(name, 0.0) + v.detach() / t
         for name, v in losses.items():
             loss_acc[name] = loss_acc.get(name, 0.0) + v * cs["frame_weight"]
         frame_gts = n_gts.sum().float()
@@ -216,6 +283,7 @@ def clip_loss(model, criterion: ClipCriterion, batch: Dict[str, torch.Tensor],
         return 1.0
 
     total = sum(w_for(name) * v for name, v in loss_acc.items()) / normalizer
+    total = total + distill_acc
     logs = {name: v.detach() / normalizer for name, v in loss_acc.items()}
     logs.update(frame_logs)
     logs["total_loss"] = total.detach()
@@ -235,9 +303,10 @@ def _fill_missing_grads(params: List[nn.Parameter]) -> int:
 
 def make_train_step(model, criterion: ClipCriterion,
                     optimizer: torch.optim.Optimizer, config_static: Dict,
-                    clip_max_norm: float):
-    """step(batch, generator, lrs) -> logs: the clip loss, its gradient,
-    clipping and one AdamW step.  ``logs["grad_norm"]`` is the global norm
+                    clip_max_norm: float, distill: Optional[Dict] = None):
+    """step(batch, generator, lrs) -> logs: the clip loss (with
+    ``distill``'s terms, ``clip_loss``), its gradient, clipping and one
+    AdamW step.  ``logs["grad_norm"]`` is the global norm
     of the trainable parameters' gradients before clipping;
     ``logs["params_without_grad"]`` counts the trainable parameters the
     loss did not reach."""
@@ -247,7 +316,7 @@ def make_train_step(model, criterion: ClipCriterion,
         set_lrs(optimizer, lrs)
         optimizer.zero_grad(set_to_none=True)
         total, logs = clip_loss(model, criterion, batch, generator,
-                                config_static)
+                                config_static, distill)
         total.backward()
         logs["params_without_grad"] = _fill_missing_grads(params)
         logs["grad_norm"] = torch.nn.utils.clip_grad_norm_(params,
@@ -260,7 +329,8 @@ def make_train_step(model, criterion: ClipCriterion,
 
 def make_accum_steps(model, criterion: ClipCriterion,
                      optimizer: torch.optim.Optimizer, config_static: Dict,
-                     clip_max_norm: float, accumulation: int):
+                     clip_max_norm: float, accumulation: int,
+                     distill: Optional[Dict] = None):
     """Gradient accumulation: (grad_step, apply_step).
     ``grad_step(batch, generator) -> logs`` adds the gradient of the clip
     loss / ``accumulation`` to the parameters' ``.grad``;
@@ -270,7 +340,7 @@ def make_accum_steps(model, criterion: ClipCriterion,
 
     def grad_step(batch, generator):
         total, logs = clip_loss(model, criterion, batch, generator,
-                                config_static)
+                                config_static, distill)
         (total / accumulation).backward()
         return logs
 
@@ -295,13 +365,20 @@ class Trainer:
     compute), moved to ``device`` and put in training mode.  Runs on the GPU
     unless ``device="cpu"``; raises when CUDA is asked for and absent.  The
     track-selection draws come from a generator seeded with ``seed``.
+    ``distill``: None, or ``{"model": teacher, "weights": {term: w}}``
+    (``clip_loss``); the teacher is moved to ``device``, put in eval mode
+    and frozen, and is neither in the optimizer nor in ``model``.
     ``train_step`` and ``grad_step`` / ``apply_step`` are the functions of
     ``make_train_step`` and ``make_accum_steps`` on this model."""
 
     def __init__(self, model, config: dict, device: torch.device | str = "cuda",
-                 seed: int = 0, world_size: int = 1):
+                 seed: int = 0, world_size: int = 1,
+                 distill: Optional[Dict] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).train()
+        self.distill = distill
+        if distill is not None:
+            distill["model"].to(self.device).eval().requires_grad_(False)
         self.config = config
         self.criterion = build_criterion(config)
         self.config_static = static_config(config, model, world_size)
@@ -310,10 +387,10 @@ class Trainer:
         self.accumulation = int(cfg_get(config, "ACCUMULATION_STEPS"))
         clip = cfg_get(config, "CLIP_MAX_NORM")
         self.train_step = make_train_step(model, self.criterion, self.optimizer,
-                                     self.config_static, clip)
+                                          self.config_static, clip, distill)
         self.grad_step, self.apply_step = make_accum_steps(
             model, self.criterion, self.optimizer, self.config_static, clip,
-            self.accumulation)
+            self.accumulation, distill)
         # counted as the JAX loop counts them (memotr_tpu/engine/train.py):
         # ``global_iter`` once per micro-batch, ``micro_steps`` within the
         # current ``epoch``

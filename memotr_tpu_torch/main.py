@@ -1,16 +1,19 @@
-"""The port's command line: train or submit (counterpart of the root
+"""The port's command line: train, submit or eval (counterpart of the root
 ``main.py``, which runs the JAX package).
 
     python -m memotr_tpu_torch.main --mode train --config-path configs/train_dancetrack.yaml \
         --data-root ./datasets/ --outputs-dir ./outputs/run/
     python -m memotr_tpu_torch.main --mode submit --config-path configs/train_dancetrack.yaml \
         --submit-dir ./outputs/run/ --submit-model checkpoint_19.pth --submit-data-split val
+    python -m memotr_tpu_torch.main --mode eval --config-path configs/train_dancetrack.yaml \
+        --data-root ./datasets/ --eval-dir ./outputs/run/ --eval-model checkpoint_19.pth
 
 A YAML experiment file plus overlays: any provided ``--flag`` must name a
 key of the file (or a default key, ``config.update_config``) and wins.
 ``--device`` (default ``cuda``) is the one flag the JAX CLI lacks: the way
-to ask for the CPU.  ``--mode eval`` (ROADMAP item 8) and ``--multi-host``
-(item 9) are not ported and raise.
+to ask for the CPU.  ``--mode eval`` submits on ``EVAL_DATA_SPLIT`` and
+scores (``engine/eval.py``; ``--eval-mode continue`` follows the epoch
+checkpoints).  ``--multi-host`` (ROADMAP item 9) is not ported and raises.
 """
 from __future__ import annotations
 
@@ -71,19 +74,20 @@ def config_from_args(args: argparse.Namespace) -> dict:
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    """Runs the mode; returns what ``train`` or ``submit`` returns."""
+    """Runs the mode; returns what ``train``, ``submit`` or ``evaluate``
+    returns."""
     args = parse_option(argv)
     if args.multi_host:
         raise NotImplementedError("--multi-host: multi-process runs are not "
                                   "ported to PyTorch (ROADMAP.md, queue 1 "
                                   "item 9)")
-    if args.mode == "eval":
-        raise NotImplementedError("--mode eval is not ported to PyTorch "
-                                  "(ROADMAP.md, queue 1 item 8)")
     config = config_from_args(args)
     if args.mode == "train":
         from .engine.train import train
         return train(config, device=args.device)
+    if args.mode == "eval":
+        from .engine.eval import evaluate
+        return evaluate(config, device=args.device)
     from .engine.submit import submit
     return submit(config, device=args.device)
 

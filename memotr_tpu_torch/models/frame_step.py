@@ -4,7 +4,7 @@ losses -> track selection -> memory update) and the streaming frame
 (forward -> lifecycle -> memory update)."""
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -33,14 +33,20 @@ def train_frame_step(model, criterion: ClipCriterion, images: torch.Tensor,
                      mask: torch.Tensor, gt: FrameGT, state: TrackState,
                      generator: torch.Generator, update_threshold: float,
                      tp_drop_ratio: float = 0.0, fp_insert_ratio: float = 0.0,
-                     no_augment: bool = False, postprocess: bool = True
+                     no_augment: bool = False, postprocess: bool = True,
+                     distill: Optional[Callable] = None
                      ) -> Tuple[Dict, torch.Tensor, TrackState]:
     """One training frame -> (loss dict, n_gts (B,), next TrackState).
     ``postprocess=False`` (a clip's last frame) skips the selection and the
-    query updater, whose results no later frame would read."""
+    query updater, whose results no later frame would read.
+    ``distill(out, images, mask)``, when given, returns the frame's
+    teacher->student terms (``engine/trainer.py: distill_frame_losses``),
+    which join the loss dict under their own names."""
     out = model_forward(model, images, mask, state)
+    dterms = {} if distill is None else distill(out, images, mask)
     losses, n_gts, state, new_cand, um_cand = criterion.process_frame(
         out, state, gt)
+    losses = dict(losses, **dterms)
     if postprocess:
         state = select_active_tracks_train(
             state, new_cand, um_cand, generator, update_threshold,

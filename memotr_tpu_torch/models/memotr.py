@@ -143,7 +143,8 @@ class MeMOTR(nn.Module):
         pred_boxes (B, N, 4), last_ref_pts / init_ref_pts (B, N, 4) logit
         space, query_mask (B, N), det_query_embed, outputs (B, N, C),
         all_logits (L, B, N, K), all_boxes (L, B, N, 4), queries
-        (L, B, N, C)."""
+        (L, B, N, C), memory (B, S, C) (the encoder's output over the S
+        flattened pyramid tokens) and memory_mask (B, S), True = padding."""
         b = images.shape[0]
         # NHWC -> NCHW view with channels_last strides (no copy)
         x = images.permute(0, 3, 1, 2).to(self.dtype)
@@ -200,6 +201,8 @@ class MeMOTR(nn.Module):
             "all_logits": dec["logits"],
             "all_boxes": dec["boxes"],
             "queries": dec["queries"],
+            "memory": dec["memory"],
+            "memory_mask": dec["memory_mask"],
         }
 
 

@@ -78,7 +78,9 @@ class DeformableTransformer(nn.Module):
         pos_embeds (B, H, W, C); query_embed (B, Nq, C or 2C); ref_pts
         (B, Nq, 4) logit space; query_mask (B, Nq) True = dead slot;
         bias_tables: the windowed encoder's cached CPB tables (eval
-        cache), or None."""
+        cache), or None.  Returns the decoder's outputs plus ``memory``
+        (B, S, C), the encoder's output over the flattened levels, and
+        ``memory_mask`` (B, S), True = padding."""
         spatial_shapes = tuple((s.shape[2], s.shape[3]) for s in srcs)
         src_flat = torch.cat([s.flatten(2).transpose(1, 2) for s in srcs],
                              dim=1).contiguous()
@@ -99,6 +101,8 @@ class DeformableTransformer(nn.Module):
             query_pos, tgt = torch.chunk(query_embed, 2, dim=-1)
             query_pos = query_pos.to(self.dtype)
         reference_points = torch.sigmoid(ref_pts.float())
-        return self.decoder(tgt.to(self.dtype), reference_points, memory,
-                            spatial_shapes, valid_ratios, query_pos,
-                            query_mask, mask_flat, class_embed)
+        dec = self.decoder(tgt.to(self.dtype), reference_points, memory,
+                           spatial_shapes, valid_ratios, query_pos,
+                           query_mask, mask_flat, class_embed)
+        # the encoder's memory, for feature distillation (engine/trainer.py)
+        return dict(dec, memory=memory, memory_mask=mask_flat)

@@ -326,9 +326,9 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("args, match", [
-    (["--mode", "eval"], "item 8"),
+    (["--mode", "eval", "--multi-host"], "item 9"),
     (["--mode", "train", "--multi-host"], "item 9"),
-    (["--mode", "train", "--distill-teacher", "t/checkpoint_1"], "item 6"),
+    (["--mode", "eval", "--visualize", "true"], "VISUALIZE"),
     (["--mode", "train", "--mesh-devices", "2"], "item 9"),
     (["--mode", "train", "--token-shard-axis", "seq"], "TPU-only"),
     (["--mode", "train", "--visualize", "true"], "VISUALIZE"),
