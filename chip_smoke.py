@@ -9,14 +9,17 @@ nonzero exit and no result line:
 2. build: the four kernel libraries from memotr_tpu_torch/csrc/ (K1 and
    its backward, K2 and its backward; one nvcc each, in parallel), with
    ptxas's registers and spills per kernel;
-3. K1 (MSDA forward) vs plain PyTorch on the card at the MSDA shapes of the
-   paths (encoder B=1 and B=2, decoder B=1 and B=2, one awkward shape),
+3. K1 (MSDA forward), through the wrapper the main path calls without a
+   gradient (``ops.msda.ms_deform_attn``: the ``msda_fwd`` torch op), vs
+   plain PyTorch on the card at the MSDA shapes of the paths (encoder B=1 and B=2, decoder B=1 and B=2, one awkward shape),
    float32 and
    bfloat16, with out-of-bounds taps; per call, over 20 calls, the device
    time (the call's CUDA kernels, torch.profiler) and the event-timed call
-   (which includes the wrapper's host work), and the achieved rate of
+   (which includes the op's and the wrapper's host work), and the
+   achieved rate of
    gathered corner bytes;
-4. K2 (fused window attention) vs plain PyTorch at the main path's shapes
+4. K2 (fused window attention), through ``ops.window_attn.window_attention``
+   (the ``window_attn_fwd`` op), vs plain PyTorch at the main path's shapes
    (window level 0, grid levels 0 and 3, and window and grid level 0 at B=2
    as the batched lanes give them, with the 800x1536 canvas's padding and
    its fully padded windows) and an awkward one, float32 and bfloat16;
@@ -144,11 +147,27 @@ nonzero exit and no result line:
     iteration against phase 22's windowed run, peak memory, and a
     profiled step's idle share and the teacher's share of its device
     time;
-Phases run in the order 1-10, 18, 19, 11-17, 20, 21, 22, 23, 24; then a
-JSON line of the training entry's numbers, a JSON line of evaluation's
-and distillation's, the card's name and power limit, a JSON line of
-kernel results and, last, the device line ``{"ok": true, "device":
-{...}}``.
+25. serving: ``memotr_tpu_torch.serving.export_streaming`` of the
+    deformable and the windowed model (``random_weights_``, bf16, 800x1536)
+    on the card (export seconds, the .pt2's size); a fresh process that
+    imports only ``memotr_tpu_torch.serving`` (asserted: no model, engine
+    or JAX module) loads each artifact, steps 8 synthetic frames and counts
+    K1's and K2's launches a frame there (12 and 0 deformable, 6 and 12
+    windowed); its rows equal the live ``eval_frame_step`` +
+    ``pack_results`` on the same frames (ids, labels and alive exactly,
+    boxes and scores to SERVING_ATOL), ``reset()`` replays frame 0 bit for
+    bit; ms a frame of ``ServingRuntime.step`` against the live step's
+    (frames 3-8) and the idle share of 3 profiled runtime frames; then
+    ``python -m memotr_tpu_torch.tools.export_serving`` on phase 22's
+    checkpoint_1.pth (one frame stepped), ``VISUALIZE`` on a 3-frame submit
+    (the dump files and the JAX package's keys) and
+    ``memotr_tpu_torch.tools.demo`` on a 5-frame synthetic XVID video (5
+    annotated frames out, 12 K1 launches a frame);
+Phases run in the order 1-10, 18, 19, 11-17, 20, 21, 22, 23, 24, 25; then
+a JSON line of the training entry's numbers, a JSON line of evaluation's
+and distillation's, a JSON line of serving's, the card's name and power
+limit, a JSON line of kernel results and, last, the device line ``{"ok":
+true, "device": {...}}``.
 
 There is no CPU path: without a CUDA device the script exits nonzero.
 """
@@ -397,8 +416,11 @@ def msda_gathered_bytes(value, loc):
 
 
 def phase_k1(device):
-    """K1 vs plain version on the card; returns (max f32 error, times)."""
+    """K1 through the wrapper the main path calls without a gradient
+    (``ops.msda.ms_deform_attn``: the ``msda_fwd`` op) vs the plain version
+    on the card; returns (max f32 error, times)."""
     from memotr_tpu_torch.ops import msda_cuda
+    from memotr_tpu_torch.ops.msda import ms_deform_attn
     from memotr_tpu_torch.ops.msda import ms_deform_attn_torch as plain
     lq_enc = sum(h * w for h, w in ENC_SHAPES)
     cases = [("encoder", 1, ENC_SHAPES, 8, 32, 4, lq_enc),
@@ -413,7 +435,9 @@ def phase_k1(device):
             for dtype in (torch.float32, torch.bfloat16):
                 v, loc, aw = msda_inputs(0, b, shapes, m, d, p, lq, dtype,
                                          device)
-                out = msda_cuda.ms_deform_attn_cuda(v, shapes, loc, aw)
+                before = msda_cuda.launches
+                out = ms_deform_attn(v, shapes, loc, aw)
+                assert msda_cuda.launches == before + 1, "no K1 launch"
                 ref = plain(v.float(), shapes, loc, aw)
                 torch.cuda.synchronize()
                 err = (out.float() - ref).abs().max().item()
@@ -431,7 +455,7 @@ def phase_k1(device):
             if name != "awkward":
                 v, loc, aw = msda_inputs(1, b, shapes, m, d, p, lq,
                                          torch.bfloat16, device)
-                k_ms, k_dev, _ = timed(lambda: msda_cuda.ms_deform_attn_cuda(
+                k_ms, k_dev, _ = timed(lambda: ms_deform_attn(
                     v, shapes, loc, aw))
                 p_ms, p_dev, _ = timed(lambda: plain(v, shapes, loc, aw))
                 b_ms, b_by = msda_bound(v, loc, aw)
@@ -557,10 +581,12 @@ def k2_bound(args, geo):
 
 
 def phase_k2(device):
-    """K2 vs plain version on the card; returns (max f32 error, times)."""
+    """K2 through the wrapper the main path calls without a gradient
+    (``ops.window_attn.window_attention``: the ``window_attn_fwd`` op) vs
+    the plain version on the card; returns (max f32 error, times)."""
     from memotr_tpu_torch.ops import window_attn_cuda
-    from memotr_tpu_torch.ops.window_attn import window_attention_torch
-    from memotr_tpu_torch.ops.window_attn_cuda import window_attention_cuda
+    from memotr_tpu_torch.ops.window_attn import (window_attention,
+                                                  window_attention_torch)
     worst = 0.0
     times = {}
     with torch.inference_mode():
@@ -568,7 +594,10 @@ def phase_k2(device):
                      "grid_l0_b2", "awkward"):
             for dtype in (torch.float32, torch.bfloat16):
                 args, geo = k2_case(name, dtype, device)
-                out = window_attention_cuda(*args, *geo)
+                before = window_attn_cuda.launches
+                out = window_attention(*args, *geo)
+                assert window_attn_cuda.launches == before + 1, \
+                    "no K2 launch"
                 ref = window_attention_torch(args[0].float(),
                                              args[1].float(), *args[2:],
                                              *geo)
@@ -598,7 +627,7 @@ def phase_k2(device):
             lib_err = (lib.float() - ref).abs().max().item()
             assert lib_err <= K2_BF16_ATOL, ("library", name, lib_err)
             k_ms, k_dev, parts = timed(
-                lambda: window_attention_cuda(*args, *geo))
+                lambda: window_attention(*args, *geo))
             assert window_attn_cuda.routes["fused"] > fused_before, \
                 f"{name}: bf16 at C=256, head dim 32 did not take the fused route"
             p_ms, p_dev, _ = timed(lambda: window_attention_torch(*args, *geo))
@@ -899,8 +928,8 @@ def phase_frame_f32(tag, config, model_bf16, device, frame_atol):
     from memotr_tpu_torch.models.frame_step import model_forward
     from memotr_tpu_torch.models.memotr import build_model
     from memotr_tpu_torch.ops.msda import ms_deform_attn_torch
-    from memotr_tpu_torch.ops.window_attn import window_attention_torch
-    from memotr_tpu_torch.ops.window_attn_cuda import window_attention_cuda
+    from memotr_tpu_torch.ops.window_attn import (window_attention,
+                                                  window_attention_torch)
     from memotr_tpu_torch.structures.track_state import TrackState
 
     torch.backends.cudnn.allow_tf32 = False
@@ -918,8 +947,9 @@ def phase_frame_f32(tag, config, model_bf16, device, frame_atol):
     calls = []
 
     def k2_checked(*args):
-        """The kernel, held against float64 beside the plain version."""
-        out = window_attention_cuda(*args)
+        """The kernel (through the op the main path calls), held against
+        float64 beside the plain version."""
+        out = window_attention(*args)
         ref = window_attention_torch(*args)
         exact = window_attention_torch(*(
             a.double() if torch.is_tensor(a) and a.is_floating_point() else a
@@ -1216,7 +1246,8 @@ def phase_k2_bwd(device):
     autograd on the card; returns (max f32 error, times at the training
     canvas's shapes)."""
     from memotr_tpu_torch.ops import window_attn_cuda as wac
-    from memotr_tpu_torch.ops.window_attn import window_attention_torch
+    from memotr_tpu_torch.ops.window_attn import (window_attention,
+                                                  window_attention_torch)
     # (name, training canvas, timed): every grid level of the training
     # canvas (L = 336, 84, 24, 6) and its window level 0 (L = 64)
     cases = [("window_l0", True, True), ("grid_l0", True, True),
@@ -1234,8 +1265,7 @@ def phase_k2_bwd(device):
                             device=device).to(dtype)
             leaves = k2_leaves(args)
             f0, b0 = wac.launches, wac.bwd_launches
-            got = k2_grads(wac.window_attention_cuda, leaves, args[2], geo,
-                           g)
+            got = k2_grads(window_attention, leaves, args[2], geo, g)
             assert (wac.launches, wac.bwd_launches) == (f0 + 1, b0 + 1)
             want = k2_grads(window_attention_torch,
                             k2_leaves(args, torch.float32), args[2], geo,
@@ -2464,6 +2494,349 @@ def phase_distill(device, paths, windowed_per_frame, no_teacher_ms):
     return res
 
 
+# ---------------------------------------------------------------- serving
+# phase 25: frames a served artifact steps, and the timed ones (3 on)
+SERVING_FRAMES = 8
+SERVING_PROFILED = 3
+# the artifact's rows against the live step's: the exported graph holds
+# the eager ATen ops (no decompositions) and K1 and K2 as one op node each,
+# which launch the same kernels on the same inputs, so the rows are
+# expected bit for bit; the box and score columns are held to this (one
+# float32 ulp at 1), ids, labels and alive to equality
+SERVING_ATOL = 1.2e-7
+SERVING_TIMEOUT = 600
+SERVING_BANNED = ("jax", "jaxlib", "flax", "memotr_tpu",
+                  "memotr_tpu_torch.models", "memotr_tpu_torch.engine")
+DEMO_FRAMES = 5
+VISUALIZE_FRAMES = 3
+
+
+def serve_artifact(art: str) -> None:
+    """Phase 25's serving process: loads ``art`` through
+    ``memotr_tpu_torch.serving`` alone, steps ``frames.npz`` (counting K1's
+    and K2's launches frame by frame, from this process's counters), checks
+    that no model, engine or JAX module came in and replays frame 0 after
+    ``reset()``.  Only then does it import the model code, build the live
+    model from ``live.pt`` and ``config.json``, and time the live step and
+    the runtime in turns on the same frames (live, runtime, runtime,
+    live); last, it profiles SERVING_PROFILED runtime frames (after the
+    turns, which a profiler session before them could slow).  Prints one
+    JSON line; the runtime's rows go to ``rows.npy``, the live step's to
+    ``live_rows.npy``."""
+    from memotr_tpu_torch.ops import msda_cuda, window_attn_cuda
+    from memotr_tpu_torch.serving import ServingRuntime
+    from memotr_tpu_torch.utils.profiling import (StepTimer,
+                                                  device_memory_stats, trace)
+    t0 = time.perf_counter()
+    rt = ServingRuntime.load(art)
+    load_s = time.perf_counter() - t0
+    with np.load(os.path.join(art, "frames.npz")) as z:
+        images, masks = z["images"], z["masks"]
+    rows, counts, ms = [], [], []
+    timer = StepTimer(skip_first=2)
+    for image, mask in zip(images, masks):
+        k1, k2 = msda_cuda.launches, window_attn_cuda.launches
+        t0 = time.perf_counter()
+        with timer:
+            rows.append(rt.step(image, mask))
+        ms.append(1e3 * (time.perf_counter() - t0))
+        counts.append([msda_cuda.launches - k1,
+                       window_attn_cuda.launches - k2])
+    banned = sorted(m for m in sys.modules
+                    if m.split(".")[0] in SERVING_BANNED
+                    or m.startswith(SERVING_BANNED[-2:]))
+    rt.reset()
+    replay = rt.step(images[0], masks[0])
+    memory = device_memory_stats(rt.device)
+
+    from memotr_tpu_torch.models.memotr import build_model
+    with open(os.path.join(art, "config.json")) as f:
+        config = json.load(f)
+    model = build_model(config)
+    model.load_state_dict(torch.load(os.path.join(art, "live.pt"),
+                                     weights_only=True))
+    model.to(rt.device).eval()
+    frames = [{"image": i, "mask": m} for i, m in zip(images, masks)]
+    turns = {"live": [], "runtime": []}
+    for kind in ("live", "runtime", "runtime", "live"):
+        if kind == "live":
+            got, pass_ms = live_rows(model, config, frames, rt.device)
+            if not turns["live"]:
+                np.save(os.path.join(art, "live_rows.npy"), got)
+        else:
+            rt.reset()
+            pass_ms = []
+            for image, mask in zip(images, masks):
+                t0 = time.perf_counter()
+                rt.step(image, mask)
+                pass_ms.append(1e3 * (time.perf_counter() - t0))
+        turns[kind].append(float(np.mean(pass_ms[2:])))
+    rt.reset()
+    for image, mask in zip(images[:3], masks[:3]):
+        rt.step(image, mask)
+    with trace(os.path.join(art, "trace")) as prof:
+        for image, mask in zip(images[3:3 + SERVING_PROFILED],
+                               masks[3:3 + SERVING_PROFILED]):
+            rt.step(image, mask)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if is_kernel(e)) / 1e3 / SERVING_PROFILED
+    np.save(os.path.join(art, "rows.npy"), np.stack(rows))
+    print(json.dumps({
+        "counts": counts, "ms": ms, "mean_ms": 1e3 * timer.mean,
+        "banned": banned, "replay_equal": bool(np.array_equal(replay,
+                                                                 rows[0])),
+        "load_s": load_s, "busy_ms": busy, "memory": memory,
+        "turns": turns}), flush=True)
+
+
+def live_rows(model, config, frames, device):
+    """The live step on ``frames``: normalize, ``eval_frame_step`` (no eval
+    cache, as the export), ``pack_results``, one host fetch a frame ->
+    (rows (n, S, 9), host ms a frame)."""
+    from memotr_tpu_torch.engine.submit import normalize_uint8, pack_results
+    from memotr_tpu_torch.models.frame_step import eval_frame_step
+    from memotr_tpu_torch.structures.track_state import TrackState
+    state = TrackState.empty(1, config["TRACK_SLOTS"], model.hidden_dim,
+                             model.num_classes, use_dab=model.use_dab,
+                             device=device)
+    rows, ms = [], []
+    with torch.inference_mode():
+        for fr in frames:
+            t0 = time.perf_counter()
+            images = torch.from_numpy(fr["image"])[None].to(device)
+            mask = torch.from_numpy(fr["mask"])[None].to(device)
+            results, state = eval_frame_step(
+                model, normalize_uint8(images), mask, state,
+                config["DET_SCORE_THRESH"], config["TRACK_SCORE_THRESH"],
+                config["MISS_TOLERANCE"])
+            rows.append(pack_results(results).cpu().numpy()[0])
+            ms.append(1e3 * (time.perf_counter() - t0))
+    return np.stack(rows), ms
+
+
+def serve_in_subprocess(art: str) -> dict:
+    """``serve_artifact`` in a fresh interpreter (which reaches the card
+    anew); its JSON line."""
+    code = ("import sys; sys.path.insert(0, '.'); import chip_smoke; "
+            f"chip_smoke.serve_artifact({art!r})")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=SERVING_TIMEOUT,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise RuntimeError(f"serving process failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_serving_model(device, tmp, name, config, per_frame):
+    """Export ``config`` (``random_weights_``, 800x1536, bf16) on the card,
+    serve it in a fresh process and hold its rows against the live
+    step's."""
+    from memotr_tpu_torch.models.memotr import build_model
+    from memotr_tpu_torch.serving import export_streaming
+    tag = "25 serving"
+    state_dict = random_weights_(build_model(config)).state_dict()
+    art = os.path.join(tmp, f"artifact_{name}")
+    t0 = time.perf_counter()
+    export_streaming(config, state_dict, art, canvas_hw=CANVAS,
+                     device=device)
+    export_s = time.perf_counter() - t0
+    size = os.path.getsize(os.path.join(art, "step.pt2"))
+    say(tag, f"{name}: export_streaming on the card in {export_s:.1f} s; "
+        f"step.pt2 {size / 2 ** 20:.1f} MiB")
+    frames = list(synthetic_frames(SERVING_FRAMES, seed=3))
+    np.savez(os.path.join(art, "frames.npz"),
+             images=np.stack([f["image"] for f in frames]),
+             masks=np.stack([f["mask"] for f in frames]))
+    torch.save(state_dict, os.path.join(art, "live.pt"))
+    with open(os.path.join(art, "config.json"), "w") as f:
+        json.dump(config, f)
+    del state_dict
+    served = serve_in_subprocess(art)
+    assert not served["banned"], f"the serving process imported " \
+        f"{served['banned']}"
+    k1, k2 = per_frame["msda_fwd"], per_frame["window_attn_fwd"]
+    assert all(c == [k1, k2] for c in served["counts"]), served["counts"]
+    say(tag, f"{name}: a fresh process that imports only "
+        f"memotr_tpu_torch.serving (no models, engine or JAX module) "
+        f"loaded it in {served['load_s']:.1f} s and stepped "
+        f"{SERVING_FRAMES} frames; K1, K2 launches a frame counted there: "
+        f"{served['counts'][0]} ok")
+    got = np.load(os.path.join(art, "rows.npy"))
+    want = np.load(os.path.join(art, "live_rows.npy"))
+    assert got.shape == want.shape == (SERVING_FRAMES, config["TRACK_SLOTS"],
+                                       9), (got.shape, want.shape)
+    assert np.isfinite(got).all()
+    exact = [0, 1, 7, 8]                     # id, label, alive, overflow
+    assert np.array_equal(got[..., exact], want[..., exact]), \
+        f"{name}: ids, labels or alive differ from the live step's"
+    err = float(np.abs(got[..., 2:7] - want[..., 2:7]).max())
+    assert err <= SERVING_ATOL, f"{name}: boxes/scores differ by {err}"
+    alive = got[..., 7].sum(axis=1).astype(int).tolist()
+    assert max(alive) > 0, f"{name}: no live track in {alive}"
+    assert served["replay_equal"], f"{name}: reset() did not replay frame 0"
+    bit = bool(np.array_equal(got, want))
+    say(tag, f"{name}: rows == the live eval_frame_step + pack_results on "
+        f"the same frames (run in the serving process after its import "
+        f"check): ids, labels, alive equal, boxes and scores max "
+        f"|diff| {err:.3g} (tolerance {SERVING_ATOL}); bit for bit: {bit}; "
+        f"live slots a frame {alive}; reset() replays frame 0 bit for bit ok")
+    turns = served["turns"]
+    run_ms, live_ms = np.mean(turns["runtime"]), np.mean(turns["live"])
+    idle = 1 - served["busy_ms"] / served["mean_ms"]
+    say(tag, f"{name}: ms a frame, frames 3-{SERVING_FRAMES} (upload, step, "
+        f"one fetch), in turns in the serving process (live, runtime, "
+        f"runtime, live): ServingRuntime.step {turns['runtime']} mean "
+        f"{run_ms:.2f}; live step {turns['live']} mean {live_ms:.2f}; "
+        f"ratio {run_ms / live_ms:.3f}; the first pass of the runtime, "
+        f"frames 3-{SERVING_FRAMES}: mean {served['mean_ms']:.2f}; runtime "
+        f"device busy "
+        f"{served['busy_ms']:.2f} ms a frame over {SERVING_PROFILED} profiled "
+        f"frames, idle share {idle:.3f}; peak "
+        f"{served['memory'].get('peak_bytes_in_use', 0) / 2 ** 30:.2f} GiB")
+    return {"export_s": export_s, "pt2_mib": size / 2 ** 20,
+            "load_s": served["load_s"], "runtime_ms": float(run_ms),
+            "live_ms": float(live_ms), "turns": turns,
+            "idle": idle, "busy_ms": served["busy_ms"], "max_abs_err": err,
+            "bit_equal": bit, "per_frame": served["counts"][0],
+            "launches": {"msda_fwd": sum(c[0] for c in served["counts"]),
+                         "window_attn_fwd": sum(c[1]
+                                                for c in served["counts"])}}
+
+
+def write_video(path: str, n_frames: int) -> None:
+    """``n_frames`` synthetic frames at ORI_HW, XVID, for the demo."""
+    import cv2
+    h, w = ORI_HW
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"XVID"), 25,
+                             (w, h))
+    for fr in synthetic_frames(n_frames, seed=4):
+        img = cv2.resize(fr["image"][:RESIZED[0], :RESIZED[1]], (w, h))
+        writer.write(img[:, :, ::-1].copy())
+    writer.release()
+
+
+def count_video_frames(path: str) -> int:
+    import cv2
+    cap = cv2.VideoCapture(path)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+def serving_run(tmp: str) -> dict:
+    """A training run's directory for phase 25 alone, in place of phase
+    22's: ENTRY_YAML as ``train/config.yaml`` and a ``checkpoint_1.pth``
+    of ``random_weights_``; the paths as phase 22 returns them."""
+    from memotr_tpu_torch.checkpoint.files import save_checkpoint
+    from memotr_tpu_torch.config import dict_to_yaml, yaml_to_dict
+    from memotr_tpu_torch.models.memotr import build_model
+    run = os.path.join(tmp, "run")
+    os.makedirs(os.path.join(run, "train"))
+    cfg = yaml_to_dict(ENTRY_YAML)
+    yaml_path = os.path.join(tmp, "config.yaml")
+    dict_to_yaml(cfg, yaml_path)
+    dict_to_yaml(cfg, os.path.join(run, "train", "config.yaml"))
+    save_checkpoint(os.path.join(run, "checkpoint_1.pth"),
+                    random_weights_(build_model(cfg)))
+    return {"tmp": tmp, "run": run, "yaml": yaml_path}
+
+
+def phase_serving(device, paths):
+    """Phase 25: the serving export of the deformable and the windowed
+    models (``phase_serving_model``), then the tools on phase 22's run:
+    ``tools.export_serving`` of checkpoint_1.pth (one frame stepped),
+    ``VISUALIZE`` on a short submit (the dumps' files and keys) and
+    ``tools.demo`` on a synthetic video (its frames counted).  Returns the
+    numbers for the result line."""
+    from memotr_tpu_torch.config import yaml_to_dict
+    from memotr_tpu_torch.serving import ServingRuntime
+    from memotr_tpu_torch.structures.track_state import SLOT_FIELDS
+    from memotr_tpu_torch.tools import demo, export_serving
+    tag = "25 serving"
+    tmp = os.path.join(paths["tmp"], "serving")
+    res = {}
+    n_levels = WINDOWED_CONFIG["NUM_FEATURE_LEVELS"]
+    for name, config, per_frame in (
+            ("deformable", CONFIG,
+             {"msda_fwd": CONFIG["NUM_ENC_LAYERS"] + CONFIG["NUM_DEC_LAYERS"],
+              "window_attn_fwd": 0}),
+            ("windowed", WINDOWED_CONFIG,
+             {"msda_fwd": WINDOWED_CONFIG["NUM_DEC_LAYERS"],
+              "window_attn_fwd": WINDOWED_CONFIG["NUM_ENC_LAYERS"]
+              * n_levels})):
+        t0 = time.perf_counter()
+        res[name] = phase_serving_model(device, tmp, name, config, per_frame)
+        say(tag, f"{name} done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    art = os.path.join(tmp, "artifact_entry")
+    export_serving.main(["--submit-dir", paths["run"], "--submit-model",
+                         "checkpoint_1", "--out", art, "--device",
+                         str(device)])
+    rt = ServingRuntime.load(art)
+    fr = next(synthetic_frames(1, seed=5))
+    reset_counts()
+    rows = rt.step(fr["image"], fr["mask"])
+    counts = read_counts()
+    cfg = yaml_to_dict(paths["yaml"])
+    assert rows.shape == (cfg["TRACK_SLOTS"], 9) and np.isfinite(rows).all()
+    assert counts["msda_fwd"] == cfg["NUM_ENC_LAYERS"] \
+        + cfg["NUM_DEC_LAYERS"], counts
+    say(tag, f"python -m memotr_tpu_torch.tools.export_serving on phase 22's "
+        f"checkpoint_1.pth -> {rt.manifest['canvas_hw']} artifact; one "
+        f"frame stepped: rows {rows.shape} finite, {counts['msda_fwd']} K1 "
+        f"launches ok ({time.perf_counter() - t0:.1f} s)")
+    del rt
+
+    t0 = time.perf_counter()
+    from memotr_tpu_torch.models.memotr import build_model
+    model = random_weights_(build_model(CONFIG)).to(device).eval()
+    vis_cfg = dict(CONFIG, VISUALIZE=True)
+    out_dir = os.path.join(tmp, "visualize_run")
+    sub = checked_submitter("DanceTrack", synthetic_frames(VISUALIZE_FRAMES),
+                            "synthetic", out_dir, model, vis_cfg, device)
+    assert not sub.pipelined, "VISUALIZE must take the sync loop"
+    sub.run()
+    dump_dir = os.path.join(out_dir, "visualize", "synthetic")
+    files = sorted(os.listdir(dump_dir))
+    want_files = [f"frame_{i:06d}.npz" for i in range(VISUALIZE_FRAMES)]
+    assert files == want_files, files
+    with np.load(os.path.join(dump_dir, files[-1])) as z:
+        keys = set(z.files)
+        want_keys = {f"results.{k}" for k in ("ids", "labels", "boxes",
+                                             "scores", "mask")} | {
+            f"state.{f}" for f in SLOT_FIELDS + ("next_id",)}
+        assert keys == want_keys, sorted(keys ^ want_keys)
+        assert np.array_equal(z["results.ids"], z["state.ids"])
+    say(tag, f"VISUALIZE: a {VISUALIZE_FRAMES}-frame submit took the sync "
+        f"loop and dumped {files} with the JAX package's {len(keys)} keys "
+        f"ok ({time.perf_counter() - t0:.1f} s)")
+    del model, sub
+
+    t0 = time.perf_counter()
+    video = os.path.join(tmp, "demo_in.avi")
+    write_video(video, DEMO_FRAMES)
+    demo_out = os.path.join(tmp, "demo_out.avi")
+    reset_counts()
+    n = demo.main(["--config", paths["yaml"], "--checkpoint",
+                   os.path.join(paths["run"], "checkpoint_1.pth"), "--video",
+                   video, "--out", demo_out, "--device", str(device)])
+    counts = read_counts()
+    n_out = count_video_frames(demo_out)
+    assert n == n_out == DEMO_FRAMES, (n, n_out)
+    assert counts["msda_fwd"] == DEMO_FRAMES * (cfg["NUM_ENC_LAYERS"]
+                                                + cfg["NUM_DEC_LAYERS"])
+    say(tag, f"python -m memotr_tpu_torch.tools.demo: {DEMO_FRAMES} frames "
+        f"of a {ORI_HW[1]}x{ORI_HW[0]} XVID video in, {n_out} annotated "
+        f"frames out, {counts['msda_fwd']} K1 launches ok "
+        f"({time.perf_counter() - t0:.1f} s)")
+    res["launches_demo"] = counts["msda_fwd"]
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke run needs "
@@ -2607,6 +2980,9 @@ def main() -> int:
                                   entry["windowed_per_frame"],
                                   entry["windowed"]["iteration_ms"])
         say("24 distill", f"done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        served = phase_serving(device, entry["paths"])
+        say("25 serving", f"done in {time.perf_counter() - t0:.1f} s")
     say("all", f"{time.perf_counter() - t_all:.1f} s")
 
     k1, k2 = k1_times["encoder"], k2_times["window_l0"]
@@ -2620,6 +2996,8 @@ def main() -> int:
                       "distill": {"config": ENTRY_WINDOWED_YAML,
                                   "teacher": ENTRY_YAML, "card": card,
                                   **distilled}}), flush=True)
+    print(json.dumps({"serving": {"card": card, "canvas": list(CANVAS),
+                                  **served}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": "msda_fwd", "route": "cuda", "source": K1_SRC,
@@ -2637,6 +3015,10 @@ def main() -> int:
          "launches_eval": evaluated["specific"]["launches"]
          + evaluated["continue"]["launches"],
          "launches_distill": distilled["counts"]["msda_fwd"],
+         "launches_serving": {
+             m: served[m]["launches"]["msda_fwd"]
+             for m in ("deformable", "windowed")},
+         "launches_demo": served["launches_demo"],
          "encoder_b2": {k: k1_times["encoder_b2"][k] for k in (
              "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
              "bound_by")}},
@@ -2654,6 +3036,8 @@ def main() -> int:
          "launches_train_entry_windowed":
              entry["windowed_counts"]["window_attn_fwd"],
          "launches_distill": distilled["counts"]["window_attn_fwd"],
+         "launches_serving": served["windowed"]["launches"][
+             "window_attn_fwd"],
          **{case: {k: k2_times[case][k] for k in (
              "ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
              "library_device_ms", "bound_ms", "bound_by")}

@@ -17,8 +17,11 @@ Two loops stream a sequence through the ``Submitter``:
   thread waits for that copy and writes the frame.  The main thread never
   waits for the device, so decode, upload, the device step and the fetch
   overlap.  On the CPU the same threads run with plain copies;
-- the **sync** loop, frame by frame, which ``USE_MOTION`` needs: motion
-  reads each frame's track state on the host before the next step.
+- the **sync** loop, frame by frame, which ``USE_MOTION`` and
+  ``VISUALIZE`` need: motion reads each frame's track state on the host
+  before the next step, and the debug dumps
+  (``outputs/visualize/<seq>/frame_*.npz``, ``utils/debug_dump.py``) write
+  each frame's results and track state.
 
 ``BatchedSubmitter`` streams B sequences of one canvas in lockstep through
 the pipelined loop, one ``TrackState`` lane each; ``stream_sequences``
@@ -46,6 +49,7 @@ from ..models.eval_cache import EvalCache
 from ..models.frame_step import eval_frame_step
 from ..models.memotr import build_model
 from ..structures.track_state import TrackState
+from ..utils.debug_dump import DebugDumper
 from ..utils.misc import host_to_device
 
 BDD_LABEL_NAMES = {
@@ -123,10 +127,14 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 
 def check_options(config: dict) -> None:
-    """Raise on the streaming options the port does not have."""
-    if cfg_get(config, "VISUALIZE"):
-        raise NotImplementedError("VISUALIZE (debug dumps) is not ported to "
-                                  "PyTorch (ROADMAP.md, queue 1 item 10)")
+    """Raise on the options the port does not have: the TPU mesh (one
+    process runs on one device)."""
+    for key in ("MESH_DEVICES", "MESH_SEQ_DEVICES"):
+        if cfg_get(config, key) not in (None, 1):
+            raise NotImplementedError(
+                f"{key}={config[key]}: the port runs in one process on one "
+                f"device (data parallelism and the lane mesh: ROADMAP.md, "
+                f"queue 1 item 9)")
 
 
 # ------------------------------------------------------------ packed fetch
@@ -363,7 +371,8 @@ class Submitter(_Streamer):
     """Streams one sequence through the model and writes its results.
 
     ``frames`` is any iterable of frame dicts (see the module docstring).
-    ``pipelined`` (the default, False with ``USE_MOTION``) picks the loop.
+    ``pipelined`` (the default, False with ``USE_MOTION`` or
+    ``VISUALIZE``) picks the loop.
     After ``run``, ``frame_seconds`` holds each frame's host seconds: in
     the sync loop from upload to fetched results, in the pipelined loop
     from the previous frame's completion in the writer (the first frame's
@@ -382,8 +391,11 @@ class Submitter(_Streamer):
             self.motion_bank = MotionBank(cfg_get(config, "MOTION_MIN_LENGTH"),
                                           cfg_get(config, "MOTION_MAX_LENGTH"))
             self._prev_disappear: Dict[int, int] = {}
-        # motion reads every frame's track state on the host
-        self.pipelined = not self.use_motion
+        visualize = bool(cfg_get(config, "VISUALIZE"))
+        self.dumper = DebugDumper(
+            os.path.join(outputs_dir, "visualize", seq_name), visualize)
+        # motion and the dumps read every frame's track state on the host
+        self.pipelined = not (self.use_motion or visualize)
         txt = os.path.join(self.predict_dir, f"{seq_name}.txt")
         if os.path.exists(txt):
             os.remove(txt)
@@ -434,6 +446,7 @@ class Submitter(_Streamer):
                 results = {k: v.cpu().numpy() for k, v in results.items()}
                 self.frame_seconds.append(time.perf_counter() - t0)
                 overflow_total += int(results.pop("slot_overflow").sum())
+                self.dumper.dump_frame(i, results=results, state=state)
                 if self.use_motion:
                     state = self._apply_motion(state)
                 self._write_frame(i, results, item["ori_hw"], item["path"],
@@ -519,9 +532,11 @@ class BatchedSubmitter(_Streamer):
     def __init__(self, dataset_name: str, sequences: Sequence[Sequence[Dict]],
                  seq_names: Sequence[str], outputs_dir: str, model,
                  config: dict, device: torch.device | str = "cuda"):
-        if cfg_get(config, "USE_MOTION"):
-            raise ValueError("USE_MOTION needs the sequential Submitter; "
-                             "submit() falls back to SUBMIT_BATCH 1 for it")
+        for key in ("USE_MOTION", "VISUALIZE"):
+            if cfg_get(config, key):
+                raise ValueError(f"{key} needs the sequential Submitter; "
+                                 "submit() falls back to SUBMIT_BATCH 1 for "
+                                 "it")
         assert len(sequences) == len(seq_names) and len(sequences) > 0
         super().__init__(dataset_name, outputs_dir, model, config, device)
         self.sequences = list(sequences)
@@ -652,12 +667,13 @@ def stream_sequences(dataset_name: str, sequences: Sequence[Tuple[str, Sequence]
     """Streams ``(name, sequence)`` pairs, each sequence indexable with a
     ``padded_canvas()`` (``SeqDataset``).  With ``SUBMIT_BATCH`` > 1 they
     are grouped by canvas and streamed that many at a time through
-    ``BatchedSubmitter``; otherwise, and always with ``USE_MOTION``, one
-    ``Submitter`` each."""
+    ``BatchedSubmitter``; otherwise, and always with ``USE_MOTION`` or
+    ``VISUALIZE``, one ``Submitter`` each."""
     batch = int(cfg_get(config, "SUBMIT_BATCH"))
-    if batch > 1 and cfg_get(config, "USE_MOTION"):
-        print("SUBMIT_BATCH ignored: USE_MOTION forces the sequential "
-              "submit path", flush=True)
+    if batch > 1 and (cfg_get(config, "USE_MOTION")
+                      or cfg_get(config, "VISUALIZE")):
+        print("SUBMIT_BATCH ignored: VISUALIZE/USE_MOTION force the "
+              "sequential submit path", flush=True)
         batch = 1
     if batch == 1:
         for name, seq in sequences:

@@ -7,10 +7,12 @@ dataset and the threaded loader, one ``Trainer``, ``RESUME``, then the
 epoch loop (curriculum, LR schedule, accumulation and warmup as the
 ``Trainer`` counts them) with the reference's checkpoint policy.  Runs on
 the GPU unless ``device="cpu"``; never falls back to the CPU.
+``VISUALIZE`` dumps each iteration's per-frame decoder outputs and track
+state into ``OUTPUTS_DIR/visualize_train/frame_<global iter>.npz``.
 
-Not ported, and refused: debug dumps (``VISUALIZE``) and the TPU mesh keys
-(``MESH_DEVICES``, ``MESH_SEQ_DEVICES`` above 1, ``TOKEN_SHARD_AXIS``);
-one process trains on one device (data parallelism is ROADMAP item 9).
+Not ported, and refused: the TPU mesh keys (``MESH_DEVICES``,
+``MESH_SEQ_DEVICES`` above 1, ``TOKEN_SHARD_AXIS``); one process trains on
+one device (data parallelism is ROADMAP item 9).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from ..config import cfg_get, dict_to_yaml, yaml_to_dict
 from ..data import build_dataloader, build_dataset
 from ..log.logger import Logger, MetricLog
 from ..models.memotr import build_model
+from ..utils.debug_dump import DebugDumper
 from ..utils.misc import set_seed
 from .submit import check_options, resolve_device
 from .trainer import Trainer, group_lrs
@@ -47,11 +50,6 @@ def _units(name: str) -> int:
 
 def check_train_options(config: dict) -> None:
     check_options(config)
-    for key in ("MESH_DEVICES", "MESH_SEQ_DEVICES"):
-        if cfg_get(config, key) not in (None, 1):
-            raise NotImplementedError(
-                f"{key}={config[key]}: the port trains in one process on one "
-                f"device (data parallelism: ROADMAP.md, queue 1 item 9)")
     if cfg_get(config, "TOKEN_SHARD_AXIS"):
         raise NotImplementedError("TOKEN_SHARD_AXIS (token sequence "
                                   "parallelism) is TPU-only and not ported")
@@ -205,6 +203,9 @@ def train(config: dict, device: torch.device | str = "cuda") -> TrainRun:
         logger.show(head=f"Resumed {config['RESUME']}: {states}")
 
     run = TrainRun(trainer, states, pretrain)
+    train_dumper = DebugDumper(
+        os.path.join(config["OUTPUTS_DIR"], "visualize_train"),
+        bool(cfg_get(config, "VISUALIZE")))
     multi_checkpoint = bool(cfg_get(config, "MULTI_CHECKPOINT"))
     for epoch in range(states["start_epoch"], config["EPOCHS"]):
         dataloader.set_epoch(epoch)
@@ -220,7 +221,11 @@ def train(config: dict, device: torch.device | str = "cuda") -> TrainRun:
                 logger.show(head=f"[Epoch={epoch}, Iter={i}] WARNING:",
                             log=f"{gt_dropped} GT boxes truncated "
                                 f"(MAX_GTS too small for this batch)")
-            logs = _host_logs(trainer.step(batch, epoch), device)
+            logs = trainer.step(batch, epoch)
+            debug = logs.pop("debug", None)
+            if debug is not None:
+                train_dumper.dump_frame(states["global_iters"], results=debug)
+            logs = _host_logs(logs, device)
             for k, v in logs.items():
                 metric_log.update(k, v)
             run.wait_seconds.append(it_t0 - t0)

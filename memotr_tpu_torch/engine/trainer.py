@@ -168,6 +168,7 @@ def static_config(config: dict, model, world_size: int = 1) -> Dict:
         "no_grad_frames": 0 if no_grad is None else no_grad,
         "frame_weight": 1.0,
         "world_size": world_size,
+        "visualize": bool(cfg_get(config, "VISUALIZE")),
         "loss_weights": {
             "label_focal_loss": cfg_get(config, "LOSS_WEIGHT_FOCAL"),
             "box_l1_loss": cfg_get(config, "LOSS_WEIGHT_L1"),
@@ -233,6 +234,11 @@ def clip_loss(model, criterion: ClipCriterion, batch: Dict[str, torch.Tensor],
     ``distill``: None, or ``{"model": teacher, "weights": {term: w}}``;
     each frame's terms add ``w * v / T`` to the total and ``v / T`` to
     their log, no-grad frames included (as constants).
+    With ``cs["visualize"]`` the logs also hold ``"debug"``: per frame f,
+    ``frame{f}.pred_logits`` / ``pred_boxes`` / ``last_ref_pts`` (the
+    decoder's outputs) and ``frame{f}.track_query_embed`` /
+    ``track_long_memory`` / ``track_mask`` (the track state the frame
+    leaves), detached, for ``utils/debug_dump.py``.
     Returns (total loss, logs)."""
     images = batch["images"]
     b, t = images.shape[:2]
@@ -251,12 +257,20 @@ def clip_loss(model, criterion: ClipCriterion, batch: Dict[str, torch.Tensor],
         gt = FrameGT(boxes=batch["gt_boxes"][:, f],
                      labels=batch["gt_labels"][:, f],
                      ids=batch["gt_ids"][:, f], mask=batch["gt_mask"][:, f])
+        outputs = {} if cs.get("visualize") else None
         with torch.set_grad_enabled(f >= k and torch.is_grad_enabled()):
             losses, n_gts, state = train_frame_step(
                 model, criterion, images[:, f], batch["mask"][:, f], gt,
                 state, generator, cs["update_threshold"], cs["tp_drop_ratio"],
                 cs["fp_insert_ratio"], no_augment=f < k - 1,
-                postprocess=f < t - 1, distill=terms)
+                postprocess=f < t - 1, distill=terms, outputs=outputs)
+        if outputs is not None:
+            dbg = frame_logs.setdefault("debug", {})
+            for name, v in outputs.items():
+                dbg[f"frame{f}.{name}"] = v
+            dbg[f"frame{f}.track_query_embed"] = state.query_embed.detach()
+            dbg[f"frame{f}.track_long_memory"] = state.long_memory.detach()
+            dbg[f"frame{f}.track_mask"] = state.mask
         for name in DISTILL_KEYS:
             if name in losses:
                 v = losses.pop(name)

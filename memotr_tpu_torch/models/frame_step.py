@@ -34,15 +34,21 @@ def train_frame_step(model, criterion: ClipCriterion, images: torch.Tensor,
                      generator: torch.Generator, update_threshold: float,
                      tp_drop_ratio: float = 0.0, fp_insert_ratio: float = 0.0,
                      no_augment: bool = False, postprocess: bool = True,
-                     distill: Optional[Callable] = None
+                     distill: Optional[Callable] = None,
+                     outputs: Optional[Dict] = None
                      ) -> Tuple[Dict, torch.Tensor, TrackState]:
     """One training frame -> (loss dict, n_gts (B,), next TrackState).
     ``postprocess=False`` (a clip's last frame) skips the selection and the
     query updater, whose results no later frame would read.
     ``distill(out, images, mask)``, when given, returns the frame's
     teacher->student terms (``engine/trainer.py: distill_frame_losses``),
-    which join the loss dict under their own names."""
+    which join the loss dict under their own names.  ``outputs``, when
+    given, receives the decoder's ``pred_logits``, ``pred_boxes`` and
+    ``last_ref_pts``, detached (the ``VISUALIZE`` dumps)."""
     out = model_forward(model, images, mask, state)
+    if outputs is not None:
+        outputs.update({k: out[k].detach() for k in
+                        ("pred_logits", "pred_boxes", "last_ref_pts")})
     dterms = {} if distill is None else distill(out, images, mask)
     losses, n_gts, state, new_cand, um_cand = criterion.process_frame(
         out, state, gt)

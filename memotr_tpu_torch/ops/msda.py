@@ -16,7 +16,9 @@ Layouts (as in the JAX package):
 ``ms_deform_attn`` dispatches by device: CPU tensors take the plain
 version (whose gradient is autograd's), CUDA tensors the hand-written
 kernels (``ops/msda_cuda.py``: the forward kernel, and under autograd the
-backward kernel for the gradient).
+backward kernel for the gradient).  Without a gradient the call is the
+torch op ``msda_fwd`` (``ops/library.py``), which a traced or exported
+graph carries as one node.
 """
 from __future__ import annotations
 
@@ -80,11 +82,19 @@ def ms_deform_attn_torch(value: torch.Tensor, spatial_shapes: Shapes,
 def ms_deform_attn(value: torch.Tensor, spatial_shapes: Shapes,
                    sampling_locations: torch.Tensor,
                    attention_weights: torch.Tensor) -> torch.Tensor:
-    """CPU tensors -> plain version; CUDA tensors -> the CUDA kernels (which
-    raise on what they do not take; there is no silent fallback)."""
-    if value.is_cuda:
-        from .msda_cuda import ms_deform_attn_cuda
-        return ms_deform_attn_cuda(value, spatial_shapes, sampling_locations,
-                                   attention_weights)
-    return ms_deform_attn_torch(value, spatial_shapes, sampling_locations,
-                                attention_weights)
+    """With a gradient asked for: CPU tensors -> the plain version (whose
+    gradient is autograd's), CUDA tensors -> ``MSDeformAttnFunction`` (the
+    forward and backward kernels).  Otherwise the ``msda_fwd`` op
+    (``ops/library.py``), which runs the forward kernel on CUDA tensors and
+    the plain version on CPU tensors.  The kernels raise on what they do
+    not take; there is no silent fallback."""
+    loc, aw = sampling_locations, attention_weights
+    if torch.is_grad_enabled() and (value.requires_grad or loc.requires_grad
+                                    or aw.requires_grad):
+        if value.is_cuda:
+            from .msda_cuda import MSDeformAttnFunction
+            return MSDeformAttnFunction.apply(
+                value, loc, aw, tuple(map(tuple, spatial_shapes)))
+        return ms_deform_attn_torch(value, spatial_shapes, loc, aw)
+    from .library import flat_shapes, msda_fwd
+    return msda_fwd(value, flat_shapes(spatial_shapes), loc, aw)

@@ -9,9 +9,9 @@ VJP of ``ms_deform_attn_xla``).  Their sources are
 header says what the kernel computes and how.  They are compiled with
 ``nvcc`` at first use and loaded with ``ctypes`` (``ops/_build.py``).
 
-``ms_deform_attn_cuda`` launches the forward alone when no gradient is
-asked for (``torch.inference_mode()``, ``torch.no_grad()`` or inputs that
-do not require grad), and otherwise goes through ``MSDeformAttnFunction``,
+``ops/msda.py: ms_deform_attn`` is the one route to them: without a
+gradient it calls the ``msda_fwd`` op (``ops/library.py``), whose CUDA
+implementation is ``msda_forward``; with one, ``MSDeformAttnFunction``,
 whose backward launches the backward kernel.
 
 ``launches`` / ``bwd_launches`` count launches of the forward / backward
@@ -200,21 +200,3 @@ class MSDeformAttnFunction(torch.autograd.Function):
         return (gv if need[0] else None, gl if need[1] else None,
                 ga if need[2] else None, None)
 
-
-def ms_deform_attn_cuda(value: torch.Tensor,
-                        spatial_shapes: Sequence[Tuple[int, int]],
-                        sampling_locations: torch.Tensor,
-                        attention_weights: torch.Tensor) -> torch.Tensor:
-    """Same contract as ``ms_deform_attn_torch``, through the kernels.
-
-    With a gradient asked for, the call goes through
-    ``MSDeformAttnFunction`` (the backward kernel then runs in
-    ``backward()``); otherwise it launches the forward kernel alone and
-    saves nothing.  Raises on what the kernels do not take (device, dtype,
-    shape, contiguity) and when a launch fails."""
-    loc, aw = sampling_locations, attention_weights
-    if torch.is_grad_enabled() and (value.requires_grad or loc.requires_grad
-                                    or aw.requires_grad):
-        return MSDeformAttnFunction.apply(value, loc, aw,
-                                          tuple(map(tuple, spatial_shapes)))
-    return msda_forward(value, spatial_shapes, loc, aw)

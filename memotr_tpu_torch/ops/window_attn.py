@@ -18,7 +18,10 @@ Grid (MaxViT) attention is the same block on a ``grid_transpose``-d map.
 
 ``window_attention`` dispatches by device: CPU tensors take the plain
 version, CUDA tensors the hand-written kernel (``ops/window_attn_cuda.py``),
-which raises on what it does not take; there is no fallback.
+which raises on what it does not take; there is no fallback.  Without a
+gradient the call is the torch op ``window_attn_fwd``
+(``ops/library.py``), which a traced or exported graph carries as one
+node.
 """
 from __future__ import annotations
 
@@ -84,15 +87,22 @@ def window_attention(x: torch.Tensor, pos: torch.Tensor, mask: torch.Tensor,
                      out_weight: torch.Tensor, out_bias: torch.Tensor,
                      bias: Optional[torch.Tensor], n_heads: int,
                      window_h: int, window_w: int) -> torch.Tensor:
-    """CPU tensors -> plain version; CUDA tensors -> the CUDA kernel."""
-    if x.is_cuda:
-        from .window_attn_cuda import window_attention_cuda
-        return window_attention_cuda(x, pos, mask, in_proj_weight,
-                                     in_proj_bias, out_weight, out_bias,
-                                     bias, n_heads, window_h, window_w)
-    return window_attention_torch(x, pos, mask, in_proj_weight, in_proj_bias,
-                                  out_weight, out_bias, bias, n_heads,
-                                  window_h, window_w)
+    """With a gradient asked for: CPU tensors -> the plain version, CUDA
+    tensors -> ``WindowAttnFunction`` (the forward and backward kernels).
+    Otherwise the ``window_attn_fwd`` op (``ops/library.py``): the forward
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    args = (x, pos, mask, in_proj_weight, in_proj_bias, out_weight, out_bias,
+            bias, n_heads, window_h, window_w)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, pos, in_proj_weight, in_proj_bias, out_weight,
+                      out_bias, bias)):
+        if x.is_cuda:
+            from .window_attn_cuda import WindowAttnFunction
+            return WindowAttnFunction.apply(*args)
+        return window_attention_torch(*args)
+    from .library import window_attn_fwd
+    return window_attn_fwd(*args)
 
 
 def grid_transpose(t: torch.Tensor, win: int) -> torch.Tensor:

@@ -10,11 +10,11 @@ each header says what bounds it on an H100 and how its design answers
 that.  They are compiled with ``nvcc`` at first use and loaded with
 ``ctypes`` (``ops/_build.py``).
 
-``window_attention_cuda`` launches the forward alone when no gradient is
-asked for (``torch.inference_mode()``, ``torch.no_grad()`` or inputs that
-do not require grad) and saves nothing; otherwise it goes through
-``WindowAttnFunction``, whose backward launches the backward kernel
-between the projection products, which stay ``torch.matmul``.
+``ops/window_attn.py: window_attention`` is the one route to them:
+without a gradient it calls the ``window_attn_fwd`` op (``ops/library.py``),
+whose CUDA implementation is ``window_attention_fwd``, and saves nothing;
+with one, ``WindowAttnFunction``, whose backward launches the backward
+kernel between the projection products, which stay ``torch.matmul``.
 
 ``launches`` / ``bwd_launches`` count calls that launched the forward /
 backward kernel (one per call: the CUDA kernels of one call are one
@@ -293,25 +293,3 @@ class WindowAttnFunction(torch.autograd.Function):
         return tuple(g if need[i] else None
                      for i, g in enumerate(grads)) + (None, None, None)
 
-
-def window_attention_cuda(x: torch.Tensor, pos: torch.Tensor,
-                          mask: torch.Tensor, in_proj_weight: torch.Tensor,
-                          in_proj_bias: torch.Tensor, out_weight: torch.Tensor,
-                          out_bias: torch.Tensor, bias: Optional[torch.Tensor],
-                          n_heads: int, window_h: int,
-                          window_w: int) -> torch.Tensor:
-    """Same contract as ``window_attention_torch``, through the kernels.
-
-    With a gradient asked for, the call goes through
-    ``WindowAttnFunction`` (the backward kernel then runs in
-    ``backward()``); otherwise it launches the forward kernel alone and
-    saves nothing.  Raises on what the kernels do not take (device, dtype,
-    shape, contiguity, alignment) and when a launch fails."""
-    args = (x, pos, mask, in_proj_weight, in_proj_bias, out_weight, out_bias,
-            bias, n_heads, window_h, window_w)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (x, pos, in_proj_weight, in_proj_bias, out_weight,
-                      out_bias, bias)):
-        return WindowAttnFunction.apply(*args)
-    return window_attention_fwd(*args)[0]

@@ -15,7 +15,11 @@ def host_to_device(array, device: torch.device | str,
     """A host array (numpy, list or CPU tensor) on ``device`` without a
     host sync: on CUDA it is copied into pinned memory and uploaded
     ``non_blocking`` on the current stream (a pageable copy would wait for
-    the stream to drain); elsewhere a plain copy."""
+    the stream to drain); elsewhere a plain copy.  Under a tracer
+    (``torch.export``) the array is made on ``device`` directly, so that
+    the graph holds it as a device constant and copies nothing a call."""
+    if torch.compiler.is_compiling():
+        return torch.as_tensor(array, dtype=dtype, device=device)
     t = torch.as_tensor(array, dtype=dtype)
     if torch.device(device).type != "cuda":
         return t.to(device)

@@ -102,6 +102,5 @@ def test_dispatch_takes_plain_version_on_cpu():
 def test_cuda_wrapper_rejects_cpu_tensors():
     value, shapes, loc, w = _inputs(5)
     with pytest.raises(ValueError, match="must be on"):
-        msda_cuda.ms_deform_attn_cuda(torch.from_numpy(value), shapes,
-                                      torch.from_numpy(loc),
-                                      torch.from_numpy(w))
+        msda_cuda.msda_forward(torch.from_numpy(value), shapes,
+                               torch.from_numpy(loc), torch.from_numpy(w))

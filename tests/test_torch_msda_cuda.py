@@ -24,7 +24,7 @@ import torch
 from memotr_tpu_torch.models.frame_step import model_forward
 from memotr_tpu_torch.models.memotr import build_model
 from memotr_tpu_torch.ops import msda_cuda
-from memotr_tpu_torch.ops.msda import ms_deform_attn_torch
+from memotr_tpu_torch.ops.msda import ms_deform_attn, ms_deform_attn_torch
 from memotr_tpu_torch.structures.track_state import TrackState
 
 pytestmark = pytest.mark.gpu
@@ -76,7 +76,7 @@ def test_kernel_matches_plain(cuda, case, dtype):
     v, loc, aw = _inputs(cuda, dtype, **CASES[case])
     before = msda_cuda.launches
     with torch.inference_mode():
-        out = msda_cuda.ms_deform_attn_cuda(v, shapes, loc, aw)
+        out = ms_deform_attn(v, shapes, loc, aw)
         ref = ms_deform_attn_torch(v.float(), shapes, loc, aw)
     torch.cuda.synchronize()
     assert msda_cuda.launches == before + 1
@@ -89,17 +89,16 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     shapes = CASES["oob_b2"]["shapes"]
     v, loc, aw = _inputs(cuda, torch.float32, **CASES["oob_b2"])
     with pytest.raises(TypeError):
-        msda_cuda.ms_deform_attn_cuda(v.half(), shapes, loc, aw)
+        ms_deform_attn(v.half(), shapes, loc, aw)
     with pytest.raises(ValueError, match="contiguous"):
-        msda_cuda.ms_deform_attn_cuda(v, shapes, loc.transpose(1, 2), aw)
+        ms_deform_attn(v, shapes, loc.transpose(1, 2), aw)
     with pytest.raises(ValueError, match="head dim"):
-        msda_cuda.ms_deform_attn_cuda(v[..., :12].contiguous(), shapes, loc,
-                                      aw)
+        ms_deform_attn(v[..., :12].contiguous(), shapes, loc, aw)
     with pytest.raises(ValueError, match="grad_out"):
         msda_cuda.msda_backward(v, shapes, loc, aw,
                                 torch.zeros(1, device=cuda))
     # a gradient asked for goes through the autograd Function
-    out = msda_cuda.ms_deform_attn_cuda(v.requires_grad_(), shapes, loc, aw)
+    out = ms_deform_attn(v.requires_grad_(), shapes, loc, aw)
     assert type(out.grad_fn).__name__ == "MSDeformAttnFunctionBackward"
 
 
@@ -145,8 +144,7 @@ def test_backward_matches_plain_autograd(cuda, case, dtype):
     g = torch.randn((b, lq, m * v.shape[3]), generator=torch.Generator(
         cuda).manual_seed(1), device=cuda).to(dtype)
     before = msda_cuda.bwd_launches
-    got = _grads(lambda *a: msda_cuda.ms_deform_attn_cuda(a[0], shapes,
-                                                          *a[1:]),
+    got = _grads(lambda *a: ms_deform_attn(a[0], shapes, *a[1:]),
                  v, loc, aw, g)
     torch.cuda.synchronize()
     assert msda_cuda.bwd_launches == before + 1
@@ -167,8 +165,7 @@ def test_backward_of_out_of_bounds_taps_is_zero(cuda):
     loc = loc.clone()
     loc[..., 0] = 1.0 + 1.0 / min(w for _, w in shapes)
     g = torch.ones((1, loc.shape[1], 2 * 4), device=cuda)
-    for t in _grads(lambda *a: msda_cuda.ms_deform_attn_cuda(a[0], shapes,
-                                                             *a[1:]),
+    for t in _grads(lambda *a: ms_deform_attn(a[0], shapes, *a[1:]),
                     v, loc, aw, g):
         assert torch.count_nonzero(t) == 0
 
@@ -183,7 +180,7 @@ def test_forward_without_grad_launches_no_backward_and_saves_nothing(cuda,
     fwd, bwd = msda_cuda.launches, msda_cuda.bwd_launches
     base = torch.cuda.memory_allocated(cuda)
     with getattr(torch, mode)():
-        out = msda_cuda.ms_deform_attn_cuda(v, shapes, loc, aw)
+        out = ms_deform_attn(v, shapes, loc, aw)
     torch.cuda.synchronize()
     assert out.grad_fn is None
     assert msda_cuda.launches == fwd + 1 and msda_cuda.bwd_launches == bwd

@@ -169,7 +169,7 @@ def test_use_dab_default_is_shared():
 
 
 @pytest.mark.parametrize("override", [
-    {"VISUALIZE": True}, {"EXTRA_TRACK_ATTN": True}, {"DROPOUT": 0.1},
+    {"MESH_DEVICES": 2}, {"EXTRA_TRACK_ATTN": True}, {"DROPOUT": 0.1},
     {"USE_CHECKPOINT": True}])
 def test_unported_options_raise(override):
     """Each option the port lacks is refused, by ``build_model`` or by the

@@ -244,7 +244,9 @@ PORT_MODULES = [
         "models.motion", "models.conv_encoder", "data", "data.transforms",
         "data.mot", "data.dancetrack", "data.mot17", "data.bdd100k",
         "data.gen_gts", "data.native", "log.logger", "checkpoint.files",
-        "engine.train", "main")]
+        "engine.train", "main", "ops.library", "serving",
+        "utils.debug_dump", "utils.profiling", "tools.export_serving",
+        "tools.demo", "tools.reproduce_dancetrack")]
 
 
 def test_port_imports_no_jax():

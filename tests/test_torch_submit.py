@@ -16,7 +16,7 @@ Also: ``BatchedSubmitter`` lanes of unequal length through ``submit()``
 (``SUBMIT_BATCH`` 2, sequences grouped by canvas, a portrait sequence in a
 group of its own) equal their B=1 runs; ``USE_MOTION`` takes the sync
 loop; a frame iterator and a writer that raise make ``run()`` raise within
-seconds; ``VISUALIZE`` is refused.  The JAX eval step compiles once, in a
+seconds; ``VISUALIZE`` takes the sync loop and the batched loop refuses it.  The JAX eval step compiles once, in a
 module-scoped fixture; ``test_torch_submit_windowed.py`` does the same for
 the windowed model with these helpers.
 """
@@ -271,14 +271,16 @@ def test_failing_writer_raises(model, tmp_path):
 
 
 def test_visualize_is_refused(model, tmp_path):
+    """``VISUALIZE`` (debug dumps, ``tests/test_torch_debug_dump.py``)
+    needs each frame's state on the host: the Submitter takes the sync
+    loop and the batched loop refuses it, as JAX's submit does."""
     cfg = dict(CFG, VISUALIZE=True)
-    with pytest.raises(NotImplementedError, match="VISUALIZE"):
-        Submitter("DanceTrack", [], "seq", str(tmp_path), model, cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="VISUALIZE"):
+    sub = Submitter("DanceTrack", [], "seq", str(tmp_path), model, cfg,
+                    "cpu")
+    assert not sub.pipelined
+    with pytest.raises(ValueError, match="VISUALIZE"):
         BatchedSubmitter("DanceTrack", [[]], ["seq"], str(tmp_path), model,
                          cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="VISUALIZE"):
-        submit(cfg, "cpu")
 
 
 def test_pipelined_loop_keeps_order_under_thread_switching():

@@ -23,6 +23,7 @@ from memotr_tpu.engine.trainer import make_accum_steps
 from memotr_tpu_torch.engine import trainer as port_trainer
 from memotr_tpu_torch.engine.trainer import BATCH_KEYS, Trainer
 from test_torch_train_step import _assert_grads_close, _batch, _jax_setup
+from test_torch_train_step import one_torch_thread  # noqa: F401
 from test_torch_train_windowed_step import (CFG as WINDOWED_CFG, compiled,
                                             port_grads, port_named,
                                             trainable_names)

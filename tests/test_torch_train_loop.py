@@ -328,10 +328,10 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu(tmp_path):
 @pytest.mark.parametrize("args, match", [
     (["--mode", "eval", "--multi-host"], "item 9"),
     (["--mode", "train", "--multi-host"], "item 9"),
-    (["--mode", "eval", "--visualize", "true"], "VISUALIZE"),
+    (["--mode", "eval", "--mesh-devices", "2"], "item 9"),
     (["--mode", "train", "--mesh-devices", "2"], "item 9"),
     (["--mode", "train", "--token-shard-axis", "seq"], "TPU-only"),
-    (["--mode", "train", "--visualize", "true"], "VISUALIZE"),
+    (["--mode", "train", "--mesh-seq-devices", "2"], "item 9"),
 ])
 def test_options_not_ported_raise(tmp_path, args, match):
     with pytest.raises(NotImplementedError, match=match):

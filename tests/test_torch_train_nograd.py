@@ -11,6 +11,7 @@ import numpy as np
 from memotr_tpu.engine.trainer import make_accum_steps
 from memotr_tpu_torch.engine.trainer import BATCH_KEYS, Trainer
 from test_torch_port_weights import to_jax_trees
+from test_torch_train_step import one_torch_thread  # noqa: F401
 from test_torch_train_step import (CFG, _assert_grads_close, _batch,
                                    _jax_setup, _leaves, _port_grads,
                                    _port_model)

@@ -59,6 +59,18 @@ H, W = 64, 96
 B, T = 2, 2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU steps on one thread: the suite runs six test
+    processes on the host's cores, and torch's thread pool in each of
+    them oversubscribes it (``test_torch_train_loop.py`` went from 238 s
+    to 69 s so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_model():
     torch.manual_seed(0)
     model = randomize_(build_model(CFG), 11)

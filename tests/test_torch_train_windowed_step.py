@@ -40,6 +40,7 @@ from memotr_tpu_torch.checkpoint.convert import state_dict_from_jax
 from memotr_tpu_torch.engine import trainer as port_trainer
 from memotr_tpu_torch.engine.trainer import BATCH_KEYS, Trainer
 from memotr_tpu_torch.models import frame_step
+from test_torch_train_step import one_torch_thread  # noqa: F401
 from test_torch_train_step import (CFG as TRAIN_CFG, MARGIN, THRESH,
                                    _adam_mu, _assert_grads_close, _batch,
                                    _jax_lrs, _jax_setup)

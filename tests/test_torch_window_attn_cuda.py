@@ -27,7 +27,8 @@ import torch
 from memotr_tpu_torch.models.frame_step import model_forward
 from memotr_tpu_torch.models.memotr import build_model
 from memotr_tpu_torch.ops import window_attn_cuda
-from memotr_tpu_torch.ops.window_attn import window_attention_torch
+from memotr_tpu_torch.ops.window_attn import (window_attention,
+                                               window_attention_torch)
 from memotr_tpu_torch.structures.track_state import TrackState
 
 pytestmark = pytest.mark.gpu
@@ -97,7 +98,7 @@ def test_kernel_matches_plain(cuda, case, dtype):
     route = _route(dtype, CASES[case][3], CASES[case][4])
     routes_before = dict(window_attn_cuda.routes)
     with torch.inference_mode():
-        out = window_attn_cuda.window_attention_cuda(*args, *geo)
+        out = window_attention(*args, *geo)
         ref = window_attention_torch(args[0].float(), args[1].float(),
                                      *args[2:], *geo)
     torch.cuda.synchronize()
@@ -113,11 +114,11 @@ def test_fused_route_allocates_no_qkv_scratch(cuda):
     one head-output map, and no (3, B, H, W, C) Q/K/V scratch."""
     args, geo = _inputs(cuda, torch.bfloat16, *CASES["main_grid_l312"])
     with torch.inference_mode():
-        window_attn_cuda.window_attention_cuda(*args, *geo)
+        window_attention(*args, *geo)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        out = window_attn_cuda.window_attention_cuda(*args, *geo)
+        out = window_attention(*args, *geo)
         torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - base <= 2 * out.nbytes + 4096
 
@@ -125,14 +126,13 @@ def test_fused_route_allocates_no_qkv_scratch(cuda):
 def test_kernel_rejects_what_it_does_not_take(cuda):
     args, geo = _inputs(cuda, torch.float32, *CASES["awkward_c32"])
     with pytest.raises(TypeError):
-        window_attn_cuda.window_attention_cuda(args[0].half(), args[1].half(),
-                                               *args[2:], *geo)
+        window_attention(args[0].half(), args[1].half(), *args[2:], *geo)
     with pytest.raises(ValueError, match="contiguous"):
-        window_attn_cuda.window_attention_cuda(
+        window_attention(
             args[0].transpose(1, 2).contiguous().transpose(1, 2), *args[1:],
             *geo)
     with pytest.raises(ValueError, match="padded"):
-        window_attn_cuda.window_attention_cuda(*args, geo[0], 5, 4)
+        window_attention(*args, geo[0], 5, 4)
     with torch.no_grad():
         _, o = window_attn_cuda.window_attention_fwd(*args, *geo)
     with pytest.raises(ValueError, match="grad_out"):
@@ -201,7 +201,7 @@ def test_backward_matches_plain_autograd(cuda, case, dtype):
         if dtype == torch.bfloat16 and c // heads in (16, 32, 64) \
         else ("cuda_cores",)
     before = sum(window_attn_cuda.bwd_routes[r] for r in routes)
-    names, got = _grads(window_attn_cuda.window_attention_cuda, args, geo, g)
+    names, got = _grads(window_attention, args, geo, g)
     assert window_attn_cuda.launches == fwd + 1
     assert window_attn_cuda.bwd_launches == bwd + 1
     assert sum(window_attn_cuda.bwd_routes[r] for r in routes) == before + 1
@@ -243,7 +243,7 @@ def test_backward_large_groups_match_plain_autograd(cuda, case, dtype):
     args, geo = _inputs(cuda, dtype, *BWD_CASES[case])
     g = torch.from_numpy(np.random.default_rng(6).normal(
         size=tuple(args[0].shape)).astype(np.float32)).to(cuda, dtype)
-    names, got = _grads(window_attn_cuda.window_attention_cuda, args, geo, g)
+    names, got = _grads(window_attention, args, geo, g)
     _, want = _grads(window_attention_torch, args, geo, g.float(),
                      torch.float32)
     torch.cuda.synchronize()
@@ -262,8 +262,8 @@ def test_backward_is_deterministic(cuda, case):
     args, geo = _inputs(cuda, torch.bfloat16, *BWD_CASES[case])
     g = torch.from_numpy(np.random.default_rng(7).normal(
         size=tuple(args[0].shape)).astype(np.float32)).to(cuda, torch.bfloat16)
-    _, first = _grads(window_attn_cuda.window_attention_cuda, args, geo, g)
-    _, again = _grads(window_attn_cuda.window_attention_cuda, args, geo, g)
+    _, first = _grads(window_attention, args, geo, g)
+    _, again = _grads(window_attention, args, geo, g)
     for a, b in zip(first, again):
         assert torch.equal(a, b)
 
@@ -278,11 +278,11 @@ def test_no_gradient_no_backward_state(cuda, mode):
     ctx = torch.inference_mode if mode == "inference_mode" else torch.no_grad
     fwd, bwd = window_attn_cuda.launches, window_attn_cuda.bwd_launches
     with ctx():
-        window_attn_cuda.window_attention_cuda(*args, *geo)
+        window_attention(*args, *geo)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        out = window_attn_cuda.window_attention_cuda(*args, *geo)
+        out = window_attention(*args, *geo)
         torch.cuda.synchronize()
     assert out.grad_fn is None and not out.requires_grad
     assert torch.cuda.max_memory_allocated() - base <= 2 * out.nbytes + 4096
