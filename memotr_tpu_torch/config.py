@@ -4,7 +4,10 @@ defaults for the PyTorch port.
 Same key space, defaults and overlay rules as ``memotr_tpu/config.py``: a
 YAML file defines the (flat, UPPER_CASE) keys; ``update_config`` overlays
 command-line options onto it, the CLI wins, and an option that names no
-key of the file is an error unless it is one of the defaults below.
+key of the file is an error unless it is one of the JAX package's
+defaults (``_DEFAULTS``).  ``cfg_get`` also falls back to the values the
+JAX package reads with a default (``_READ_DEFAULTS``); the keys its
+training path reads without one are ``TRAIN_REQUIRED``.
 ``yaml`` is imported on first use only, so that the slices can be driven
 from a dict built in code where PyYAML is not installed.
 """
@@ -13,86 +16,90 @@ from __future__ import annotations
 import copy
 from typing import Any
 
-# Defaults for keys an experiment YAML may omit (memotr_tpu/config.py).
-# ``MSDA_IMPL`` is a TPU dispatch knob the port ignores: one CUDA kernel of
-# each kind serves every shape on one device.  The mesh keys are TPU
-# parallelism the port does not have (``engine/train.py`` raises unless they
-# are unset or 1).  The training keys default as the JAX trainer reads
-# them (``config.get(key, default)`` there); the keys it requires default to
-# ``configs/train_dancetrack.yaml``'s values.
+# Defaults for the keys an experiment YAML may omit: the JAX package's
+# ``_DEFAULTS`` (memotr_tpu/config.py), key for key and value for value.
+# ``update_config`` adds an absent key from the command line only if it is
+# one of these, as the JAX package's does.  ``MSDA_IMPL`` is a TPU dispatch
+# knob the port ignores: one CUDA kernel of each kind serves every shape on
+# one device.  The mesh keys are TPU parallelism the port does not have
+# (``engine/train.py`` raises unless they are unset or 1).
 _DEFAULTS = {
-    # training: optimizer and schedule
-    "LR": 2.0e-4,
-    "LR_BACKBONE": 2.0e-5,
-    "LR_POINTS": 1.0e-5,
-    "WEIGHT_DECAY": 0.0,
-    "CLIP_MAX_NORM": 0.1,
-    "LR_SCHEDULER": "MultiStep",
-    "LR_DROP_RATE": 0.1,
-    "LR_DROP_MILESTONES": [12],
-    "EPOCHS": 20,
-    "WARMUP_ITERS": 0,
-    "ACCUMULATION_STEPS": 1,
-    "NO_GRAD_FRAMES": None,
-    "NO_GRAD_STEPS": None,
-    # training: matching, losses, track augmentation
-    "MATCH_COST_CLASS": 2.0,
-    "MATCH_COST_BBOX": 5.0,
-    "MATCH_COST_GIOU": 2.0,
-    "LOSS_WEIGHT_FOCAL": 2.0,
-    "LOSS_WEIGHT_L1": 5.0,
-    "LOSS_WEIGHT_GIOU": 2.0,
-    "AUX_LOSS": True,
-    "AUX_LOSS_WEIGHT": None,
+    "MERGE_DET_TRACK_LAYER": 0,
     "TP_DROP_RATE": 0.0,
     "FP_INSERT_RATE": 0.0,
-    "MAX_GTS": 128,
-    "DROPOUT": 0.0,
-    "USE_CHECKPOINT": False,
-    # model and streaming
-    "MERGE_DET_TRACK_LAYER": 0,
-    "EXTRA_TRACK_ATTN": False,
-    "USE_DAB": True,
-    "TRACK_SLOTS": 64,
-    "DTYPE": "bfloat16",
-    "EVAL_SHORT_SIDE": 800,
-    "EVAL_MAX_SIDE": 1536,
-    "ENCODER_TYPE": "deformable",
-    "WINDOW_SIZE": 8,
-    "WINDOWED_LEPE": True,
-    "WINDOWED_BOTTOMUP": True,
-    "WINDOWED_RELPOS": True,
-    "WINDOWED_PRENORM": False,
-    "WINDOWED_SHARED_CPB": False,
-    "HYBRID_DEFORM_MIN_LEVEL": 1,
-    "EVAL_CACHE": True,
-    # streaming: the batched loop's lanes, post-hoc motion, debug dumps
-    "SUBMIT_BATCH": 1,
     "USE_MOTION": False,
-    "MOTION_LAMBDA": 0.5,
     "MOTION_MIN_LENGTH": 3,
     "MOTION_MAX_LENGTH": 5,
-    "VISUALIZE": False,
-    # data and the training loop
+    "EXTRA_TRACK_ATTN": False,
+    "USE_DAB": True,
     "NUM_WORKERS": 4,
+    "ACCUMULATION_STEPS": 1,
     "COCO_SIZE": False,
     "OVERFLOW_BBOX": False,
     "REVERSE_CLIP": 0.0,
+    "NO_GRAD_FRAMES": None,
+    "TRACK_SLOTS": 64,
+    "MAX_GTS": 128,
+    "DTYPE": "bfloat16",
+    "EVAL_SHORT_SIDE": 800,
+    "EVAL_MAX_SIDE": 1536,
+    "MSDA_IMPL": "auto",
+    "MESH_DEVICES": None,
+    "TOKEN_SHARD_AXIS": None,
+    "ENCODER_TYPE": "deformable",
+    "WINDOWED_LEPE": True,
+    "WINDOWED_BOTTOMUP": True,
+    "WINDOWED_RELPOS": True,
+    "WINDOW_SIZE": 8,
+    "WINDOWED_PRENORM": False,
+    "WINDOWED_SHARED_CPB": False,
+    "HYBRID_DEFORM_MIN_LEVEL": 1,
+    "WARMUP_ITERS": 0,
+    "SUBMIT_BATCH": 1,
     "FIXED_TRAIN_CANVAS": None,   # (H, W): pad every train batch to one canvas
-    "TRAIN_SHORT_SIDES": None,    # replaces MOTR_SCALES (no resize-crop branch)
-    "TRAIN_MAX_SIZE": 1536,
-    "MULTI_CHECKPOINT": False,
-    "PRETRAIN_SKIP_ENCODER": None,  # None: skip iff ENCODER_TYPE != deformable
+    "MESH_SEQ_DEVICES": 1,
     "DISTILL_TEACHER": None,      # an epoch checkpoint (.pth) of the port
     "DISTILL_WEIGHT_MEMORY": 1.0,
     "DISTILL_WEIGHT_LOGIT": 1.0,
     "DISTILL_WEIGHT_BOX": 1.0,
-    # TPU knobs, accepted on the command line as JAX's CLI accepts them
-    "MSDA_IMPL": "auto",
-    "MESH_DEVICES": None,
-    "MESH_SEQ_DEVICES": 1,
-    "TOKEN_SHARD_AXIS": None,
+    "PRETRAIN_SKIP_ENCODER": None,  # None: skip iff ENCODER_TYPE != deformable
+    "VISUALIZE": False,
 }
+
+# The values the JAX package reads with ``config.get(key, default)`` for
+# keys outside ``_DEFAULTS``: ``cfg_get`` falls back to them, but the
+# command line cannot add such a key to a config that lacks it.
+_READ_DEFAULTS = {
+    "AUX_LOSS": True,              # models/criterion.py
+    "AUX_LOSS_WEIGHT": None,
+    "CLIP_MAX_NORM": 0.1,          # engine/trainer.py
+    "WEIGHT_DECAY": 0.0,
+    "LR_SCHEDULER": "MultiStep",
+    "DROPOUT": 0.0,
+    "NO_GRAD_STEPS": None,
+    "MULTI_CHECKPOINT": False,     # engine/train.py
+    "USE_CHECKPOINT": False,       # models/memotr.py
+    "TRAIN_SHORT_SIDES": None,     # data/dancetrack.py; None: MOTR_SCALES
+    "TRAIN_MAX_SIZE": 1536,
+    "EVAL_CACHE": True,            # engine/submit.py
+    "MOTION_LAMBDA": 0.5,
+}
+
+# The keys the JAX package's training path (engine/train.py,
+# engine/trainer.py, models/, data/) reads as ``config[key]``, on every
+# run: ``engine/train.py: train`` raises when a config lacks one.
+TRAIN_REQUIRED = (
+    "DATASET", "DATA_ROOT", "OUTPUTS_DIR", "SEED", "BATCH_SIZE", "EPOCHS",
+    "HIDDEN_DIM", "FFN_DIM", "NUM_FEATURE_LEVELS", "NUM_HEADS",
+    "NUM_ENC_POINTS", "NUM_DEC_POINTS", "NUM_ENC_LAYERS", "NUM_DEC_LAYERS",
+    "NUM_DET_QUERIES", "DROPOUT", "UPDATE_THRESH", "LONG_MEMORY_LAMBDA",
+    "LR", "LR_BACKBONE", "LR_POINTS",
+    "MATCH_COST_CLASS", "MATCH_COST_BBOX", "MATCH_COST_GIOU",
+    "LOSS_WEIGHT_FOCAL", "LOSS_WEIGHT_L1", "LOSS_WEIGHT_GIOU",
+    "SAMPLE_STEPS", "SAMPLE_LENGTHS", "SAMPLE_MODES", "SAMPLE_INTERVALS",
+)
+# ... and with the MultiStep LR schedule (the default)
+MULTISTEP_REQUIRED = ("LR_DROP_MILESTONES", "LR_DROP_RATE")
 
 
 def cfg_get(config: dict, key: str, default: Any = None) -> Any:
@@ -100,7 +107,18 @@ def cfg_get(config: dict, key: str, default: Any = None) -> Any:
         return config[key]
     if key in _DEFAULTS:
         return _DEFAULTS[key]
+    if key in _READ_DEFAULTS:
+        return _READ_DEFAULTS[key]
     return default
+
+
+def missing_train_keys(config: dict) -> list:
+    """The keys of ``TRAIN_REQUIRED`` (and, under the MultiStep schedule,
+    ``MULTISTEP_REQUIRED``) that ``config`` lacks."""
+    keys = TRAIN_REQUIRED
+    if cfg_get(config, "LR_SCHEDULER") == "MultiStep":
+        keys += MULTISTEP_REQUIRED
+    return [k for k in keys if k not in config]
 
 
 def yaml_to_dict(path: str) -> dict:
@@ -138,8 +156,8 @@ def update_config(config: dict, options: dict) -> dict:
     """Overlays command-line ``options`` onto a YAML ``config`` (a copy);
     the CLI wins.  Options whose value is ``None`` are skipped.  A key (in
     ``--kebab-case`` or UPPER_CASE) that the config lacks raises
-    ``KeyError`` unless it is a default key, which then overlays at the top
-    level; a key found more than once in a nested config raises
+    ``KeyError`` unless it is a key of ``_DEFAULTS`` (the JAX package's
+    list), which then overlays at the top level; a key found more than once in a nested config raises
     ``ValueError``."""
     config = copy.deepcopy(config)
     for key, value in options.items():

@@ -27,7 +27,8 @@ import torch
 from ..checkpoint.files import (host_rng_state, load_checkpoint,
                                 remap_pretrained_dab, save_checkpoint,
                                 set_host_rng_state)
-from ..config import cfg_get, dict_to_yaml, yaml_to_dict
+from ..config import (cfg_get, dict_to_yaml, missing_train_keys,
+                      yaml_to_dict)
 from ..data import build_dataloader, build_dataset
 from ..log.logger import Logger, MetricLog
 from ..models.memotr import build_model
@@ -49,6 +50,12 @@ def _units(name: str) -> int:
 
 
 def check_train_options(config: dict) -> None:
+    """Raise on a config the JAX package's ``train`` refuses: one that
+    lacks a key it reads as ``config[key]`` (``config.TRAIN_REQUIRED``);
+    and on the options not ported."""
+    missing = missing_train_keys(config)
+    if missing:
+        raise KeyError(f"the training config lacks {', '.join(missing)}")
     check_options(config)
     if cfg_get(config, "TOKEN_SHARD_AXIS"):
         raise NotImplementedError("TOKEN_SHARD_AXIS (token sequence "

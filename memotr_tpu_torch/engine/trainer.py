@@ -83,13 +83,13 @@ def lr_schedule_factory(config: dict) -> Callable[[int], float]:
     """Per-epoch LR multiplier."""
     kind = cfg_get(config, "LR_SCHEDULER")
     if kind == "MultiStep":
-        milestones = list(cfg_get(config, "LR_DROP_MILESTONES"))
-        gamma = cfg_get(config, "LR_DROP_RATE")
+        milestones = list(config["LR_DROP_MILESTONES"])
+        gamma = config["LR_DROP_RATE"]
 
         def schedule(epoch: int) -> float:
             return gamma ** sum(1 for m in milestones if epoch >= m)
     elif kind == "Cosine":
-        t_max = cfg_get(config, "EPOCHS")
+        t_max = config["EPOCHS"]
 
         def schedule(epoch: int) -> float:
             return 0.5 * (1 + math.cos(math.pi * epoch / t_max))
@@ -108,9 +108,9 @@ def warmup_scale(global_iter: int, warmup_iters: int) -> float:
 def group_lrs(config: dict, epoch: int) -> Dict[str, float]:
     """Each group's LR for this epoch, with the updater-only freeze."""
     mult = lr_schedule_factory(config)(epoch)
-    lr = cfg_get(config, "LR") * mult
-    lrs = {"backbone": cfg_get(config, "LR_BACKBONE") * mult,
-           "points": cfg_get(config, "LR_POINTS") * mult,
+    lr = config["LR"] * mult
+    lrs = {"backbone": config["LR_BACKBONE"] * mult,
+           "points": config["LR_POINTS"] * mult,
            "query_updater": lr, "base": lr, "frozen": 0.0}
     if epoch >= cfg_get(config, "ONLY_TRAIN_QUERY_UPDATER_AFTER", 10 ** 9):
         lrs["backbone"] = lrs["points"] = lrs["base"] = 0.0
@@ -170,9 +170,9 @@ def static_config(config: dict, model, world_size: int = 1) -> Dict:
         "world_size": world_size,
         "visualize": bool(cfg_get(config, "VISUALIZE")),
         "loss_weights": {
-            "label_focal_loss": cfg_get(config, "LOSS_WEIGHT_FOCAL"),
-            "box_l1_loss": cfg_get(config, "LOSS_WEIGHT_L1"),
-            "box_giou_loss": cfg_get(config, "LOSS_WEIGHT_GIOU"),
+            "label_focal_loss": config["LOSS_WEIGHT_FOCAL"],
+            "box_l1_loss": config["LOSS_WEIGHT_L1"],
+            "box_giou_loss": config["LOSS_WEIGHT_GIOU"],
         },
     }
 

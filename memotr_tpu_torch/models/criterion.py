@@ -292,9 +292,9 @@ def build_criterion(config: dict) -> ClipCriterion:
     return ClipCriterion(
         num_classes=num_classes_for_dataset(config["DATASET"]),
         n_det_queries=config["NUM_DET_QUERIES"],
-        w_match_class=cfg_get(config, "MATCH_COST_CLASS"),
-        w_match_bbox=cfg_get(config, "MATCH_COST_BBOX"),
-        w_match_giou=cfg_get(config, "MATCH_COST_GIOU"),
+        w_match_class=config["MATCH_COST_CLASS"],
+        w_match_bbox=config["MATCH_COST_BBOX"],
+        w_match_giou=config["MATCH_COST_GIOU"],
         merge_det_track_layer=cfg_get(config, "MERGE_DET_TRACK_LAYER"),
         aux_weights=cfg_get(config, "AUX_LOSS_WEIGHT"),
         use_dab=cfg_get(config, "USE_DAB"),

@@ -108,3 +108,68 @@ def test_logger_files_match_jax(tmp_path):
             assert f.read() == want, fn
     assert port_config.yaml_to_dict(
         str(tmp_path / "port" / "train" / "config.yaml")) == config
+
+
+# the keys the port's defaults once supplied that the JAX package's
+# ``_DEFAULTS`` lacks: the command line may not add them to a config
+PORT_ONLY_KEYS = (
+    "AUX_LOSS", "AUX_LOSS_WEIGHT", "CLIP_MAX_NORM", "DROPOUT", "EPOCHS",
+    "EVAL_CACHE", "LOSS_WEIGHT_FOCAL", "LOSS_WEIGHT_GIOU", "LOSS_WEIGHT_L1",
+    "LR", "LR_BACKBONE", "LR_DROP_MILESTONES", "LR_DROP_RATE", "LR_POINTS",
+    "LR_SCHEDULER", "MATCH_COST_BBOX", "MATCH_COST_CLASS", "MATCH_COST_GIOU",
+    "MOTION_LAMBDA", "MULTI_CHECKPOINT", "NO_GRAD_STEPS", "TRAIN_MAX_SIZE",
+    "TRAIN_SHORT_SIDES", "USE_CHECKPOINT", "WEIGHT_DECAY")
+
+
+def test_defaults_are_jax_defaults():
+    assert port_config._DEFAULTS == jax_config._DEFAULTS
+    assert not set(port_config._READ_DEFAULTS) & set(port_config._DEFAULTS)
+
+
+@pytest.mark.parametrize("key", PORT_ONLY_KEYS)
+def test_absent_key_outside_jax_defaults_is_refused(key):
+    config = {"DATASET": "DanceTrack"}
+    for update in (jax_config.update_config, port_config.update_config):
+        assert _outcome(update, config, {key.lower().replace("_", "-"): 1}) \
+            == "KeyError"
+    assert _outcome(port_config.update_config, config, {"lr": 1e-4}) \
+        == _outcome(jax_config.update_config, config, {"lr": 1e-4}) \
+        == "KeyError"
+
+
+@pytest.mark.parametrize("key", ["WINDOW_SIZE", "SUBMIT_BATCH", "DTYPE"])
+def test_absent_jax_default_key_overlays(key):
+    config = {"DATASET": "DanceTrack"}
+    want = jax_config.update_config(config, {key: 4})
+    assert port_config.update_config(config, {key: 4}) == want \
+        == {"DATASET": "DanceTrack", key: 4}
+
+
+def test_read_defaults_are_what_jax_reads():
+    """cfg_get falls back to the values the JAX package reads with
+    ``config.get(key, default)``; the keys it reads without a default have
+    none."""
+    for key, value in port_config._READ_DEFAULTS.items():
+        assert port_config.cfg_get({}, key) == value, key
+    for key in port_config.TRAIN_REQUIRED + port_config.MULTISTEP_REQUIRED:
+        if key != "DROPOUT":
+            assert port_config.cfg_get({}, key) is None, key
+
+
+@pytest.mark.parametrize("key", ["LR", "MATCH_COST_CLASS", "EPOCHS",
+                                 "LR_DROP_MILESTONES"])
+def test_train_raises_on_a_missing_required_key(tmp_path, key):
+    from memotr_tpu_torch.engine.train import train
+    config = port_config.yaml_to_dict(
+        os.path.join(REPO, "configs", "train_dancetrack.yaml"))
+    config.update(OUTPUTS_DIR=str(tmp_path / "out"),
+                  DATA_ROOT=str(tmp_path / "data"))
+    assert port_config.missing_train_keys(config) == []
+    del config[key]
+    with pytest.raises(KeyError, match=key):
+        train(config, "cpu")
+    assert not os.path.exists(tmp_path / "out")
+    # the Cosine schedule reads no milestones
+    if key == "LR_DROP_MILESTONES":
+        assert port_config.missing_train_keys(
+            dict(config, LR_SCHEDULER="Cosine")) == []
