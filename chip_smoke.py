@@ -122,7 +122,8 @@ nonzero exit and no result line:
     ClipDataset.get
     timed clip by clip on one host thread (the Data layer), submit of the
     val split from checkpoint_1.pth at ENTRY_THRESH (its first frame's
-    rows are the detections of the model's own forward above it, and the
+    rows are the model's own forward's detections above it that take the
+    TRACK_SLOTS slots, in query order, with an area over 100 px, and the
     best of those scores clears ENTRY_SCORE_FLOOR; the decode path
     named), and the
     windowed flagship (configs/train_dancetrack_windowed.yaml, one 5-frame
@@ -180,11 +181,33 @@ nonzero exit and no result line:
     iteration at T=2 and T=3, the idle share of one profiled iteration,
     peak memory and the extrapolated wall of one full 10-epoch v3 run;
     then ``quality_report`` and ``scalars_report`` over the workdir;
-Phases run in the order 1-10, 18, 19, 11-17, 20, 21, 22, 23, 24, 25, 26;
-then a JSON line of the training entry's numbers, a JSON line of
+27. ``USE_CHECKPOINT`` at 896x1536: a bf16 deformable T=5 step off and
+    on from the same weights and batch (peak memory and host ms of each;
+    K1 forward launches doubled, 2 x 12 x T, by the recompute, backward
+    unchanged), a bf16 windowed T=2 step off and on (K2 and the decoder's
+    K1 forward doubled, backward unchanged), and a float32 T=1 step on
+    ``scaled_weights_`` off and on: gradients within TRAIN_NORM_RTOL;
+28. ``EXTRA_TRACK_ATTN`` and ``DROPOUT`` 0.1: a float32 deformable T=2
+    step (finite losses, a live gradient in every ``track_attn`` and
+    ``norm4``), the same step with ``USE_CHECKPOINT`` from the same seed
+    (gradients within TRAIN_NORM_RTOL: the recompute draws the forward's
+    masks); a bf16 windowed T=2 step at DROPOUT 0.1 takes the composed
+    route (0 K2 launches), and the same model streams 2 frames through
+    K2 (12 a frame);
+29. several processes: ``torchrun --standalone --nproc_per_node 1`` of
+    ``memotr_tpu_torch.main --multi-host --mode train`` for one epoch of
+    phase 22's train tree (the NCCL group, 12 x T K1 launches a step,
+    rank 0's checkpoint); then two ranks on the one card over gloo with
+    CUDA tensors, one float32 T=2 clip each: parameters equal on both
+    ranks bit for bit and within TRAIN_NORM_RTOL (norms) of one process's
+    step on both clips, MetricLog.sync's totals, and a two-sequence
+    submit, one sequence a rank, whose union equals one process's txt;
+Phases run in the order 1-10, 18, 19, 11-17, 20, 21, 22, 23, 24, 25,
+26-29; then a JSON line of the training entry's numbers, a JSON line of
 evaluation's and distillation's, a JSON line of serving's, a JSON line of
-the campaign's, the card's name and power limit, a JSON line of kernel
-results and, last, the device line ``{"ok": true, "device": {...}}``.
+the campaign's, a JSON line of phases 27-29, the card's name and power
+limit, a JSON line of kernel results and, last, the device line
+``{"ok": true, "device": {...}}``.
 
 There is no CPU path: without a CUDA device the script exits nonzero.
 """
@@ -1949,24 +1972,38 @@ def entry_first_frame(config: dict, ckpt: str, seq_dir: str,
 
 
 def check_first_frame(rows, det: dict, slots: int) -> dict:
-    """The submit's frame-1 ``rows`` are ``det``'s detections above
-    ENTRY_THRESH with an area over the submit's 100 pixels, at most
-    ``slots`` of them: as many (a detection within ENTRY_SCORE_MARGIN of
-    the threshold counts either way), each row's box within ENTRY_BOX_TOL
-    of a detection's of its own.  Returns the counts and the largest box
-    difference."""
+    """The submit's frame-1 ``rows`` are its newborn tracks: ``det``'s
+    detections above ENTRY_THRESH take the ``slots`` free slots in query
+    order (``models/runtime_tracker.newborn_candidates``, as JAX's
+    ``insert_tracks``; the rest are dropped), and a slot is written when
+    its box's area is over the submit's 100 pixels.  A detection within
+    ENTRY_SCORE_MARGIN of the threshold, or within 10 pixels of that area,
+    may fall either side of it (the two forwards round bf16 differently).
+    Only the detections that can reach a slot count: those in query order
+    up to the ``slots``-th sure one, since the sure ones take a slot
+    whatever the others do.  Each ambiguous one among them moves the row
+    count by at most one.  Each row's box lies within ENTRY_BOX_TOL of a
+    detection's of its own among those.  Returns the counts and the
+    largest box difference."""
     scores, boxes = det["scores"], det["boxes"]
     area = boxes[:, 2] * boxes[:, 3]
-    sure = (scores > ENTRY_THRESH + ENTRY_SCORE_MARGIN) & (area > 100)
-    maybe = (scores > ENTRY_THRESH - ENTRY_SCORE_MARGIN) & (area > 90)
+    sure = scores > ENTRY_THRESH + ENTRY_SCORE_MARGIN
+    maybe = scores > ENTRY_THRESH - ENTRY_SCORE_MARGIN
+    cand = np.nonzero(maybe)[0]
+    n_sure = np.cumsum(sure[cand])
+    window = cand[:int(np.searchsorted(n_sure, slots)) + 1]
+    n_amb = int((~sure[window]).sum()
+                + (np.abs(area[window] - 100) <= 10).sum())
+    expect = int((area[np.nonzero(sure)[0][:slots]] > 100).sum())
     first = [np.array(r[2:6]) for r in rows if r[0] == 1]
-    lo, hi = min(int(sure.sum()), slots), min(int(maybe.sum()), slots)
+    lo, hi = max(expect - n_amb, 0), min(expect + n_amb, slots)
     assert lo <= len(first) <= hi, \
-        f"frame 1: {len(first)} rows, detections above {ENTRY_THRESH}: " \
-        f"{lo}-{hi}"
+        f"frame 1: {len(first)} rows, slot-taking detections above " \
+        f"{ENTRY_THRESH} with an area over 100 px: {lo}-{hi}"
     h, w = det["hw"]
     tol = ENTRY_BOX_TOL * np.array([w, h, w, h], float)
-    free, worst = set(np.nonzero(maybe)[0].tolist()), 0.0
+    free = set(window.tolist())
+    worst = 0.0
     for box in first:
         j = min(free, key=lambda k: np.abs(boxes[k] - box).max())
         diff = np.abs(boxes[j] - box)
@@ -1974,7 +2011,8 @@ def check_first_frame(rows, det: dict, slots: int) -> dict:
         free.discard(j)
         worst = max(worst, float(diff.max()))
     return {"rows": len(first), "detections": [lo, hi],
-            "max_box_diff_px": worst}
+            "window": len(window),
+            "above_threshold": int(sure.sum()), "max_box_diff_px": worst}
 
 
 def check_moved(tag, model, pretrained) -> None:
@@ -2243,8 +2281,9 @@ def phase_train_entry(device, tmp=None):
         f"{time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{k} {len(v)} MOT lines" for k, v in txts.items())
         + f" (thresholds {thresh}); frame 1: {first['rows']} rows, "
-        f"the model's own forward {first['detections'][0]}-"
-        f"{first['detections'][1]} detections above it (boxes within "
+        f"the model's own forward {first['above_threshold']} detections "
+        f"above it, {first['detections'][0]}-{first['detections'][1]} of "
+        f"the {cfg['TRACK_SLOTS']} slot-takers over 100 px (boxes within "
         f"{first['max_box_diff_px']:.3g} px), best score {best:.4f} (floor "
         f"{ENTRY_SCORE_FLOOR}); frames decoded by the {decode} path"
         + ("" if native.available() else
@@ -3319,6 +3358,475 @@ def phase_campaign(device, tmp=None) -> dict:
     return results
 
 
+# ------------------------------------------- training options (27-28)
+# phase 27's deformable step: the clip length of the bench's T=5 step
+CKPT_T = 5
+# phase 28: the dropout rate of the option's check (every site live)
+OPTIONS_DROPOUT = 0.1
+
+
+def train_once(config, state_dict, batch, device, seed=0):
+    """One ``Trainer.step`` of a fresh ``config`` model holding
+    ``state_dict``: the launches (set to 0 just before the step, read just
+    after), the step's host ms (synchronized) and its peak memory (GiB:
+    ``max_memory_allocated`` over the step less what was allocated before
+    the model was built, after a garbage collection, so that tensors left
+    by earlier phases and trainers do not count; the model's weights, its
+    gradients and the optimizer's state do).  Returns (trainer, logs,
+    counts, ms, peak)."""
+    import gc
+
+    from memotr_tpu_torch.engine.trainer import Trainer
+    from memotr_tpu_torch.models.memotr import build_model
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    model = build_model(config)
+    model.load_state_dict(state_dict)
+    trainer = Trainer(model, config, device, seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    logs = trainer.step(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    peak = (torch.cuda.max_memory_allocated(device) - base) / 2 ** 30
+    for k, v in logs.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.isfinite(v).all(), (k, v)
+    return trainer, logs, counts, ms, peak
+
+
+def grad_step_once(config, state_dict, batch, device):
+    """The float32 check of phases 13 and 28: one unclipped ``grad_step``
+    (TF32 off) of a fresh ``config`` model holding ``state_dict``; returns
+    (model, logs, counts)."""
+    from memotr_tpu_torch.engine.trainer import Trainer
+    from memotr_tpu_torch.models.memotr import build_model
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_model(config)
+    model.load_state_dict(state_dict)
+    tr = Trainer(model, config, device, seed=0)
+    reset_counts()
+    logs = tr.grad_step(tr.batch_to_device(batch), tr.generator)
+    torch.cuda.synchronize()
+    return model, logs, read_counts()
+
+
+def group_norms(model) -> dict:
+    """Each parameter group's gradient norm (float64 sums), and the global
+    one."""
+    from memotr_tpu_torch.engine.trainer import param_groups
+    norms = {}
+    for g, ps in param_groups(model).items():
+        sq = [(p.grad.double() ** 2).sum() for p in ps if p.grad is not None]
+        norms[g] = float(torch.stack(sq).sum().sqrt()) if sq else 0.0
+    norms["global"] = float(np.sqrt(sum(v ** 2 for v in norms.values())))
+    return norms
+
+
+def compare_grads(tag, a, b, rtol) -> float:
+    """Two models' gradients: every group norm within ``rtol`` (phase
+    13's measure) and the relative L2 of the difference over all of them;
+    returns the largest norm change."""
+    na, nb = group_norms(a), group_norms(b)
+    rels = {g: abs(na[g] - nb[g]) / max(abs(nb[g]), 1e-30) for g in nb}
+    diff = sum(float(((pa.grad.double() - pb.grad.double()) ** 2).sum())
+               for pa, pb in zip(a.parameters(), b.parameters())
+               if pb.grad is not None)
+    l2 = np.sqrt(diff) / max(nb["global"], 1e-30)
+    for g, rel in rels.items():
+        say(tag, f"grad norm {g}: {na[g]:.6e} vs {nb[g]:.6e} (rel "
+            f"{rel:.2e}, tolerance {rtol})")
+        assert rel <= rtol or na[g] == nb[g], (tag, g, na[g], nb[g])
+    say(tag, f"relative L2 of the gradients' difference {l2:.2e} "
+        f"(tolerance {rtol})")
+    assert l2 <= rtol, (tag, l2)
+    return max(rels.values())
+
+
+def phase_checkpoint(device) -> dict:
+    """Phase 27: ``USE_CHECKPOINT`` at 896x1536.  A bf16 deformable T=5
+    step off then on (same weights and batch, after an untimed step of
+    the same shapes): K1 forward launches doubled (the recompute runs the
+    kernel), backward unchanged, peak memory and host ms of each; a windowed T=2 step off then on: K2 (and the
+    decoder's K1) forward doubled, backward unchanged; a float32 T=1 step
+    on ``scaled_weights_`` off and on: gradients within phase 13's
+    tolerance."""
+    from memotr_tpu_torch.models.memotr import build_model
+    tag = "27 checkpoint"
+    res = {}
+    for name, config, t, per_frame in (
+            ("deformable", TRAIN_CONFIG, CKPT_T,
+             {"msda_fwd": 12, "msda_bwd": 12, "window_attn_fwd": 0,
+              "window_attn_bwd": 0}),
+            ("windowed", WINDOWED_TRAIN_CONFIG, 2,
+             {"msda_fwd": 6, "msda_bwd": 6, "window_attn_fwd": 12,
+              "window_attn_bwd": 12})):
+        sd = random_weights_(build_model(config)).state_dict()
+        batch = train_batch(t, seed=50)
+        # a step of these shapes first, so that neither timed step pays
+        # for cuDNN's and cuBLAS's first calls (phases 12 and 15 ran T=2
+        # and T=5 already in a whole run, not in a run of this phase alone)
+        train_once(config, sd, batch, device)
+        runs = {}
+        for ckpt in (False, True):
+            trainer, logs, counts, ms, peak = train_once(
+                dict(config, USE_CHECKPOINT=ckpt), sd, batch, device)
+            del trainer
+            want = {k: n * t * (2 if ckpt and k.endswith("fwd") else 1)
+                    for k, n in per_frame.items()}
+            assert counts == want, (tag, name, ckpt, counts, want)
+            runs[ckpt] = {"counts": counts, "ms": ms, "peak_gib": peak,
+                          "total_loss": float(logs["total_loss"])}
+            say(tag, f"{name} T={t} USE_CHECKPOINT={ckpt}: {ms:.1f} ms "
+                f"(host wall, synchronized), peak {peak:.2f} GiB "
+                f"(max_memory_allocated less the memory held before), "
+                f"total_loss "
+                f"{runs[ckpt]['total_loss']:.5f}; launches " + ", ".join(
+                    f"{k} {v}" for k, v in counts.items()) + " ok")
+        off, on = runs[False], runs[True]
+        rel = abs(on["total_loss"] - off["total_loss"]) / abs(
+            off["total_loss"])
+        assert rel <= TRAIN_LOSS_RTOL, (tag, name, off, on)
+        say(tag, f"{name}: forward launches doubled, backward unchanged; "
+            f"peak {off['peak_gib']:.2f} -> {on['peak_gib']:.2f} GiB "
+            f"({on['peak_gib'] / off['peak_gib']:.3f}x), host "
+            f"{off['ms']:.1f} -> {on['ms']:.1f} ms "
+            f"({on['ms'] / off['ms']:.3f}x); total_loss rel {rel:.2e}")
+        res[name] = {"T": t, "off": off, "on": on}
+    cfg = dict(TRAIN_CONFIG, DTYPE="float32")
+    sd = scaled_weights_(build_model(cfg)).state_dict()
+    batch = train_batch(1, seed=40)
+    off, _, c_off = grad_step_once(cfg, sd, batch, device)
+    on, _, c_on = grad_step_once(dict(cfg, USE_CHECKPOINT=True), sd, batch,
+                                 device)
+    assert c_on["msda_fwd"] == 2 * c_off["msda_fwd"] == 24, (c_off, c_on)
+    res["f32_norm_change"] = compare_grads(
+        tag + " f32", on, off, TRAIN_NORM_RTOL)
+    return res
+
+
+def phase_options(device) -> dict:
+    """Phase 28: ``EXTRA_TRACK_ATTN`` and ``DROPOUT`` at 896x1536.  A
+    float32 deformable T=2 step (TF32 off, ``scaled_weights_``) with both:
+    finite losses, live gradients in every ``track_attn`` and ``norm4``;
+    the same step with ``USE_CHECKPOINT`` from the same weights, batch and
+    dropout seed: gradients within phase 13's tolerance (the recompute
+    draws the forward's masks).  Then the bf16 windowed model at
+    ``DROPOUT`` 0.1: a T=2 step takes the composed route (0 K2 launches),
+    and the same model streams 2 frames through K2, 12 a frame."""
+    from memotr_tpu_torch.models.memotr import build_model
+    tag = "28 options"
+    res = {}
+    cfg = dict(TRAIN_CONFIG, DTYPE="float32", EXTRA_TRACK_ATTN=True,
+               DROPOUT=OPTIONS_DROPOUT)
+    sd = scaled_weights_(build_model(cfg)).state_dict()
+    batch = train_batch(2, seed=41)
+    off, logs, c_off = grad_step_once(cfg, sd, batch, device)
+    for k, v in logs.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.isfinite(v).all(), (tag, k, v)
+    attn = [(n, p) for n, p in off.named_parameters()
+            if ".track_attn." in n or ".norm4." in n]
+    assert len(attn) == 6 * (cfg["NUM_DEC_LAYERS"]
+                             - cfg["MERGE_DET_TRACK_LAYER"]), len(attn)
+    for n, p in attn:
+        assert p.grad is not None and p.grad.abs().max() > 0, n
+    say(tag, f"float32 T=2, EXTRA_TRACK_ATTN and DROPOUT "
+        f"{OPTIONS_DROPOUT}: total_loss {float(logs['total_loss']):.5f} "
+        f"(finite), {len(attn)} track_attn / norm4 tensors with a live "
+        f"gradient; launches " + ", ".join(f"{k} {v}" for k, v in
+                                           c_off.items()))
+    on, logs_on, c_on = grad_step_once(dict(cfg, USE_CHECKPOINT=True), sd,
+                                       batch, device)
+    assert c_on["msda_fwd"] == 2 * c_off["msda_fwd"] == 48, (c_off, c_on)
+    assert c_on["msda_bwd"] == c_off["msda_bwd"] == 24, (c_off, c_on)
+    rel = abs(float(logs_on["total_loss"]) - float(logs["total_loss"])) \
+        / abs(float(logs["total_loss"]))
+    say(tag, f"with USE_CHECKPOINT: total_loss rel {rel:.2e}; msda_fwd "
+        f"{c_on['msda_fwd']} = 2 x {c_off['msda_fwd']}")
+    assert rel <= TRAIN_LOSS_RTOL, rel
+    res["ckpt_norm_change"] = compare_grads(tag, on, off, TRAIN_NORM_RTOL)
+    del on, off
+    wcfg = dict(WINDOWED_TRAIN_CONFIG, DROPOUT=OPTIONS_DROPOUT)
+    wsd = random_weights_(build_model(wcfg)).state_dict()
+    trainer, logs, counts, ms, _ = train_once(wcfg, wsd, train_batch(2, 42),
+                                              device)
+    want = {"msda_fwd": 12, "msda_bwd": 12, "window_attn_fwd": 0,
+            "window_attn_bwd": 0}
+    assert counts == want, (tag, counts)
+    say(tag, f"windowed bf16 T=2 at DROPOUT {OPTIONS_DROPOUT}: {ms:.1f} ms, "
+        f"the composed route: " + ", ".join(f"{k} {v}" for k, v in
+                                           counts.items()) + " ok")
+    model = trainer.model.eval()
+    _, scounts, _, _ = stream(tag, model, dict(WINDOWED_CONFIG,
+                                               DROPOUT=OPTIONS_DROPOUT),
+                              synthetic_frames(2, seed=3), device)
+    assert scounts["window_attn_fwd"] == 12 * 2, scounts
+    say(tag, f"the same model streams 2 frames: window_attn_fwd "
+        f"{scounts['window_attn_fwd']} = 12 x 2, msda_fwd "
+        f"{scounts['msda_fwd']} ok")
+    res["windowed_dropout_train"] = counts
+    res["windowed_dropout_stream"] = scounts
+    return res
+
+
+# ------------------------------------------------ several processes (29)
+TORCHRUN_TIMEOUT = 420
+TORCHRUN_STEPS = 10          # epoch 0 of phase 22's tree: 10 clips of T=2
+RANKS_TIMEOUT = 420
+RANKS_VIDEOS = {"val": (("dancetrack0011", 4), ("dancetrack0012", 4))}
+TORCHRUN_LAUNCH = '''
+import json, runpy, sys
+import torch.distributed as dist
+sys.argv[0] = "memotr_tpu_torch.main"
+runpy.run_module("memotr_tpu_torch.main", run_name="__main__")
+from memotr_tpu_torch.ops import msda_cuda
+print(json.dumps({"backend": dist.get_backend(), "rank": dist.get_rank(),
+                  "world": dist.get_world_size(),
+                  "msda_fwd": msda_cuda.launches,
+                  "msda_bwd": msda_cuda.bwd_launches}), flush=True)
+dist.destroy_process_group()
+'''
+
+
+def run_processes(cmds, timeout, what, env=None):
+    """Starts every command (its own session), waits for all; kills every
+    process group left at the timeout.  A process that fails fails the
+    phase.  Returns their stdouts."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here, **(env or {}))
+    procs = [subprocess.Popen(c, cwd=here, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True,
+                              start_new_session=True) for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+    for i, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, \
+            f"{what} process {i} failed ({p.returncode}):\n{err[-6000:]}"
+    return [out for out, _ in outs]
+
+
+def phase_torchrun(device, tmp) -> dict:
+    """Phase 29a: ``torchrun --standalone --nproc_per_node 1`` of
+    ``memotr_tpu_torch.main --multi-host --mode train`` (the module run as
+    ``-m`` runs it, then the launches printed) on phase 22's train tree
+    for one epoch: the NCCL group, K1 forward and backward 12 x T every
+    step, and rank 0's checkpoint and scalars."""
+    from memotr_tpu_torch.config import yaml_to_dict
+    tag = "29 torchrun"
+    root = os.path.join(tmp, "datasets")
+    write_tree(root, {"train": ENTRY_VIDEOS["train"]}, seed=50)
+    yaml_path = os.path.join(tmp, "train_dancetrack.yaml")
+    entry_yaml(ENTRY_YAML, yaml_path)
+    launch = os.path.join(tmp, "launch.py")
+    with open(launch, "w") as f:
+        f.write(TORCHRUN_LAUNCH)
+    out = os.path.join(tmp, "run")
+    t0 = time.perf_counter()
+    stdout, = run_processes([[
+        sys.executable, "-m", "torch.distributed.run", "--standalone",
+        "--nproc_per_node", "1", launch, "--multi-host", "--mode", "train",
+        "--config-path", yaml_path, "--data-root", root, "--outputs-dir",
+        out, "--epochs", "1"]], TORCHRUN_TIMEOUT, "torchrun")
+    wall = time.perf_counter() - t0
+    rec = json.loads(stdout.strip().splitlines()[-1])
+    cfg = yaml_to_dict(yaml_path)
+    per_step = 2 * (cfg["NUM_ENC_LAYERS"] + cfg["NUM_DEC_LAYERS"])
+    with open(os.path.join(out, "train", "scalars.jsonl")) as f:
+        scalars = [json.loads(line) for line in f]
+    assert rec["backend"] == "nccl" and rec["world"] == 1, rec
+    assert rec["msda_fwd"] == rec["msda_bwd"] == TORCHRUN_STEPS * per_step, \
+        rec
+    assert os.path.exists(os.path.join(out, "checkpoint_0.pth"))
+    assert scalars and all(np.isfinite(r["total_loss"]) for r in scalars)
+    say(tag, f"torchrun --nproc_per_node 1 main --multi-host --mode train, "
+        f"1 epoch in {wall:.1f} s (process start included): backend "
+        f"{rec['backend']}, {rec['msda_fwd'] // per_step} steps of T=2 at "
+        f"{per_step} K1 forward and backward launches each (totals "
+        f"{rec['msda_fwd']} / {rec['msda_bwd']}); checkpoint_0.pth by rank "
+        f"0; scalars.jsonl total_loss {scalars[-1]['total_loss']:.4f}")
+    return {"wall_s": wall, **rec}
+
+
+def ranks_config() -> dict:
+    """Phase 29b's training config: phase 13's float32 step (TF32 off)."""
+    return dict(TRAIN_CONFIG, DTYPE="float32")
+
+
+def two_rank_worker(rank: int, port: int, tmp: str) -> None:
+    """One of phase 29b's two ranks on the one card: a gloo group over
+    CUDA tensors (NCCL refuses two ranks on one device), started here;
+    the port's code takes the group it finds.  One float32 train step on
+    its clip (rank 1 from perturbed weights, which the Trainer's broadcast
+    replaces), a MetricLog sync, and a sharded submit; results to
+    ``tmp/rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from memotr_tpu_torch.engine import submit as port_submit
+    from memotr_tpu_torch.engine.trainer import BATCH_KEYS
+    from memotr_tpu_torch.log.logger import MetricLog
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sd = torch.load(os.path.join(tmp, "init.pt"))
+    if rank == 1:
+        sd = {k: v + 0.5 if v.is_floating_point() else v
+              for k, v in sd.items()}
+    data = np.load(os.path.join(tmp, "batch.npz"))
+    batch = {k: data[k][rank:rank + 1] for k in BATCH_KEYS}
+    trainer, logs, counts, ms, _ = train_once(ranks_config(), sd, batch,
+                                              device)
+    model = trainer.model
+    res = {"counts": counts, "ms": ms,
+           "logs": {k: float(logs[k]) for k in ("total_loss", "grad_norm",
+                                                "n_gts")},
+           "grads": {n: p.grad.cpu() for n, p in model.named_parameters()
+                     if p.grad is not None},
+           "state": {k: v.cpu() for k, v in model.state_dict().items()}}
+    del trainer, model
+    log = MetricLog()
+    for v in ([1.0, 2.0], [3.0, 4.0, 5.0])[rank]:
+        log.update("loss", v)
+    log.sync()
+    res["sync"] = (log.metrics["loss"].total_sum,
+                   log.metrics["loss"].total_count)
+    streamed = []
+    orig = port_submit.stream_sequences
+
+    def recording(dataset_name, sequences, *args, **kwargs):
+        streamed.extend(name for name, _ in sequences)
+        return orig(dataset_name, sequences, *args, **kwargs)
+    port_submit.stream_sequences = recording
+    with open(os.path.join(tmp, "submit.json")) as f:
+        port_submit.submit(json.load(f), device)
+    res["streamed"] = streamed
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_two_ranks(device, tmp) -> dict:
+    """Phase 29b: two ranks on the card over gloo, one 896x1536 T=2 clip
+    each, one float32 step: the parameters equal on both ranks bit for
+    bit, and one process's step on both clips (B=2) within phase 13's
+    tolerance (loss, gradient norm, and rank 0's clipped gradients held
+    to that step's by ``compare_grads``: each group's norm and the
+    relative L2 of the difference); MetricLog.sync's
+    global totals; a two-sequence submit, one sequence a rank, whose
+    union equals one process's files byte for byte."""
+    from memotr_tpu_torch.checkpoint.files import save_checkpoint
+    from memotr_tpu_torch.config import dict_to_yaml, yaml_to_dict
+    from memotr_tpu_torch.data.loader import collate_clips
+    from memotr_tpu_torch.engine.submit import submit
+    from memotr_tpu_torch.models.memotr import build_model
+    tag = "29 two ranks"
+    cfg = ranks_config()
+    torch.save(scaled_weights_(build_model(cfg)).state_dict(),
+               os.path.join(tmp, "init.pt"))
+    batch = collate_clips([synthetic_clip(2, 60), synthetic_clip(2, 61)],
+                          cfg["MAX_GTS"])
+    np.savez(os.path.join(tmp, "batch.npz"), **batch)
+    # the submit: a run directory as train() writes it, two val videos
+    root = os.path.join(tmp, "datasets")
+    write_tree(root, RANKS_VIDEOS, seed=70)
+    yaml_cfg = yaml_to_dict(ENTRY_YAML)
+    runs = {}
+    for name in ("ranks", "one"):
+        run = os.path.join(tmp, name)
+        os.makedirs(os.path.join(run, "train"))
+        dict_to_yaml(yaml_cfg, os.path.join(run, "train", "config.yaml"))
+        runs[name] = run
+    model = random_weights_(build_model(yaml_cfg))
+    for run in runs.values():
+        save_checkpoint(os.path.join(run, "checkpoint_0.pth"), model)
+    del model
+    sub = dict(yaml_cfg, DATA_ROOT=root, SUBMIT_DATA_SPLIT="val",
+               SUBMIT_MODEL="checkpoint_0.pth", DET_SCORE_THRESH=ENTRY_THRESH,
+               TRACK_SCORE_THRESH=ENTRY_THRESH,
+               RESULT_SCORE_THRESH=ENTRY_THRESH)
+    with open(os.path.join(tmp, "submit.json"), "w") as f:
+        json.dump(dict(sub, SUBMIT_DIR=runs["ranks"]), f)
+    port = free_port()
+    t0 = time.perf_counter()
+    run_processes([[sys.executable, "-c",
+                    f"import chip_smoke as c; c.two_rank_worker({r}, "
+                    f"{port}, {tmp!r})"] for r in range(2)],
+                  RANKS_TIMEOUT, "rank")
+    wall = time.perf_counter() - t0
+    r0, r1 = (torch.load(os.path.join(tmp, f"rank{r}.pt"))
+              for r in range(2))
+    per_step = {"msda_fwd": 24, "msda_bwd": 24, "window_attn_fwd": 0,
+                "window_attn_bwd": 0}
+    for r in (r0, r1):
+        assert r["counts"] == per_step, r["counts"]
+        assert r["sync"] == (15.0, 5), r["sync"]
+    for k in r0["state"]:
+        assert torch.equal(r0["state"][k], r1["state"][k]), k
+    say(tag, f"2 ranks (gloo, CUDA tensors, one card), one T=2 clip each, "
+        f"{wall:.1f} s with process start: parameters equal on both ranks "
+        f"bit for bit; launches a rank " + ", ".join(
+            f"{k} {v}" for k, v in r0["counts"].items())
+        + f"; MetricLog.sync (15.0, 5) on both")
+    # one process, both clips
+    trainer, logs, counts, ms, _ = train_once(cfg, torch.load(
+        os.path.join(tmp, "init.pt")), batch, device)
+    for k in ("total_loss", "grad_norm"):
+        rel = abs(r0["logs"][k] - float(logs[k])) / abs(float(logs[k]))
+        say(tag, f"{k}: ranks {r0['logs'][k]:.7f}, one process "
+            f"{float(logs[k]):.7f} (rel {rel:.2e})")
+        assert rel <= (TRAIN_LOSS_RTOL if k == "total_loss"
+                       else TRAIN_NORM_RTOL), (k, rel)
+    assert r0["logs"]["n_gts"] == float(logs["n_gts"]), r0["logs"]
+    ranks = build_model(cfg).to(device)
+    for n, p in ranks.named_parameters():
+        if n in r0["grads"]:
+            p.grad = r0["grads"][n].to(device)
+    change = compare_grads(tag, ranks, trainer.model, TRAIN_NORM_RTOL)
+    say(tag, f"one process on both clips (B=2): n_gts "
+        f"{int(r0['logs']['n_gts'])} equal, rank 0's clipped gradients "
+        f"within {TRAIN_NORM_RTOL} of its")
+    del trainer, ranks
+    submit(dict(sub, SUBMIT_DIR=runs["one"]), device)
+    names = [v for v, _ in RANKS_VIDEOS["val"]]
+    assert [r0["streamed"], r1["streamed"]] == [names[:1], names[1:]], \
+        (r0["streamed"], r1["streamed"])
+    for v in names:
+        with open(os.path.join(runs["ranks"], "val", "tracker",
+                               f"{v}.txt")) as f:
+            got = f.read()
+        with open(os.path.join(runs["one"], "val", "tracker",
+                               f"{v}.txt")) as f:
+            assert got == f.read(), v
+        assert got, v
+    say(tag, f"submit: rank 0 streamed {r0['streamed']}, rank 1 "
+        f"{r1['streamed']}; the union equals one process's txt byte for "
+        f"byte")
+    return {"wall_s": wall, "counts_per_rank": r0["counts"],
+            "norm_change": change,
+            "rank_ms": [r0["ms"], r1["ms"]], "one_process_ms": ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke run needs "
@@ -3470,6 +3978,19 @@ def main() -> int:
         campaign_errs = phase_campaign_kernels(device)
         campaign = phase_campaign(device, tmp)
         say("26 campaign", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ckpt = phase_checkpoint(device)
+    say("27 checkpoint", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    options = phase_options(device)
+    say("28 options", f"done in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for sub in ("torchrun", "ranks"):
+            os.makedirs(os.path.join(tmp, sub))
+        torchrun = phase_torchrun(device, os.path.join(tmp, "torchrun"))
+        ranks = phase_two_ranks(device, os.path.join(tmp, "ranks"))
+        say("29 processes", f"done in {time.perf_counter() - t0:.1f} s")
     say("all", f"{time.perf_counter() - t_all:.1f} s")
     campaign_launches = {k: sum(r["launches"][k] for r in campaign.values())
                          for k in campaign_errs}
@@ -3490,7 +4011,12 @@ def main() -> int:
     print(json.dumps({"campaign": {"card": card, "variants": campaign,
                                    "kernel_errors": campaign_errs}}),
           flush=True)
+    print(json.dumps({"checkpoint": {"card": card, **ckpt},
+                      "options": {"card": card, **options},
+                      "torchrun": {"card": card, **torchrun},
+                      "two_ranks": {"card": card, **ranks}}), flush=True)
     print(card, flush=True)
+    ck_d, ck_w = ckpt["deformable"], ckpt["windowed"]
     print(json.dumps({"kernels": [
         {"name": "msda_fwd", "route": "cuda",
          "launches_campaign": campaign_launches["msda_fwd"],
@@ -3513,6 +4039,13 @@ def main() -> int:
              m: served[m]["launches"]["msda_fwd"]
              for m in ("deformable", "windowed")},
          "launches_demo": served["launches_demo"],
+         "launches_checkpoint": {
+             "deformable_T5": [ck_d["off"]["counts"]["msda_fwd"],
+                               ck_d["on"]["counts"]["msda_fwd"]],
+             "windowed_T2": [ck_w["off"]["counts"]["msda_fwd"],
+                             ck_w["on"]["counts"]["msda_fwd"]]},
+         "launches_torchrun": torchrun["msda_fwd"],
+         "launches_two_ranks": ranks["counts_per_rank"]["msda_fwd"],
          "encoder_b2": {k: k1_times["encoder_b2"][k] for k in (
              "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms",
              "bound_by")}},
@@ -3533,6 +4066,13 @@ def main() -> int:
              entry["windowed_counts"]["window_attn_fwd"],
          "launches_distill": distilled["counts"]["window_attn_fwd"],
          "launches_serving": served["windowed"]["launches"][
+             "window_attn_fwd"],
+         "launches_checkpoint": {"windowed_T2": [
+             ck_w["off"]["counts"]["window_attn_fwd"],
+             ck_w["on"]["counts"]["window_attn_fwd"]]},
+         "launches_dropout_train": options["windowed_dropout_train"][
+             "window_attn_fwd"],
+         "launches_dropout_stream": options["windowed_dropout_stream"][
              "window_attn_fwd"],
          **{case: {k: k2_times[case][k] for k in (
              "ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
@@ -3555,7 +4095,14 @@ def main() -> int:
          "launches_train_windowed": win_counts["msda_bwd"],
          "launches_train_entry": entry["counts"]["msda_bwd"],
          "launches_train_entry_windowed": entry["windowed_counts"]["msda_bwd"],
-         "launches_distill": distilled["counts"]["msda_bwd"]},
+         "launches_distill": distilled["counts"]["msda_bwd"],
+         "launches_checkpoint": {
+             "deformable_T5": [ck_d["off"]["counts"]["msda_bwd"],
+                               ck_d["on"]["counts"]["msda_bwd"]],
+             "windowed_T2": [ck_w["off"]["counts"]["msda_bwd"],
+                             ck_w["on"]["counts"]["msda_bwd"]]},
+         "launches_torchrun": torchrun["msda_bwd"],
+         "launches_two_ranks": ranks["counts_per_rank"]["msda_bwd"]},
         {"name": "window_attn_bwd", "route": "cuda",
          "launches_campaign": campaign_launches["window_attn_bwd"],
          "max_abs_err_campaign": campaign_errs["window_attn_bwd"], "source": K2B_SRC,
@@ -3566,6 +4113,11 @@ def main() -> int:
          "launches_train_entry_windowed":
              entry["windowed_counts"]["window_attn_bwd"],
          "launches_distill": distilled["counts"]["window_attn_bwd"],
+         "launches_checkpoint": {"windowed_T2": [
+             ck_w["off"]["counts"]["window_attn_bwd"],
+             ck_w["on"]["counts"]["window_attn_bwd"]]},
+         "launches_dropout_train": options["windowed_dropout_train"][
+             "window_attn_bwd"],
          "max_abs_err": k2b_err, "ms": k2b["ms"],
          "device_ms": k2b["device_ms"],
          "kernel_device_ms": k2b["kernel_device_ms"],

@@ -16,6 +16,13 @@ package names them after its checkpoint directory: for
 ``checkpoint_1.pth``, the tracker directory ``<split>/checkpoint_1_tracker/``
 (with ``pedestrian_summary.txt``), ``<split>/checkpoint_1_metrics.json``,
 and a ``scalars.jsonl`` record at step 1 (the epoch) in mode ``epochs``.
+
+In a process group every rank submits its share of the sequences, all
+wait at a barrier, and rank 0 alone renames the tracker directory and
+scores it: JAX's ``eval_model`` scores right after its own shard, so it
+can read a directory another process has not finished writing (ROADMAP
+hazard (c)).  The other ranks return None; ``continue``'s cursor is rank
+0's.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from ..config import yaml_to_dict
 from ..log.logger import Logger
 from ..metrics import evaluate_mot_challenge
 from ..metrics.evaluator import write_summary
+from ..utils.distributed import barrier, is_main_process
 from .submit import check_options, resolve_device, submit
 
 SUMMARY_KEYS = ("HOTA", "DetA", "AssA", "MOTA", "IDF1")
@@ -43,12 +51,17 @@ def checkpoint_epoch(stem: str) -> int:
 
 
 def eval_model(config: dict, eval_dir: str, model_name: str, logger: Logger,
-               device: torch.device | str = "cuda") -> Dict[str, float]:
+               device: torch.device | str = "cuda"
+               ) -> Optional[Dict[str, float]]:
     """Submits ``eval_dir/model_name`` on ``EVAL_DATA_SPLIT`` and scores it
-    against the split's GT; returns the metric dict (percent)."""
+    against the split's GT once every rank's shard is written; returns the
+    metric dict (percent) on rank 0, None on the others."""
     split = config["EVAL_DATA_SPLIT"]
     submit(dict(config, SUBMIT_DIR=eval_dir, SUBMIT_MODEL=model_name,
                 SUBMIT_DATA_SPLIT=split), device)
+    barrier()
+    if not is_main_process():
+        return None
 
     dataset = yaml_to_dict(os.path.join(eval_dir, "train/config.yaml"))[
         "DATASET"]
@@ -81,6 +94,15 @@ def eval_model(config: dict, eval_dir: str, model_name: str, logger: Logger,
     return metrics
 
 
+def _eval_all_ranks(config, eval_dir, name, logger, device):
+    """``eval_model``, then a barrier: no rank goes on (to the next
+    checkpoint's submit, which writes the tracker directory again) before
+    rank 0 has moved and scored this one."""
+    metrics = eval_model(config, eval_dir, name, logger, device)
+    barrier()
+    return metrics
+
+
 def evaluate(config: dict, device: torch.device | str = "cuda"
              ) -> Optional[Dict[str, float]]:
     """``EVAL_MODE`` ``specific``: the metrics of ``EVAL_MODEL``;
@@ -92,8 +114,8 @@ def evaluate(config: dict, device: torch.device | str = "cuda"
     mode = config.get("EVAL_MODE", "specific")
     if mode == "specific":
         assert config.get("EVAL_MODEL"), "--eval-model required"
-        return eval_model(config, eval_dir, config["EVAL_MODEL"], logger,
-                          device)
+        return _eval_all_ranks(config, eval_dir, config["EVAL_MODEL"],
+                               logger, device)
     if mode != "continue":
         raise ValueError(f"Unknown EVAL_MODE '{mode}'")
     import yaml
@@ -105,10 +127,11 @@ def evaluate(config: dict, device: torch.device | str = "cuda"
     while states["last"] + 1 < config["EPOCHS"]:
         name = f"checkpoint_{states['last'] + 1}.pth"
         if os.path.isfile(os.path.join(eval_dir, name)):
-            eval_model(config, eval_dir, name, logger, device)
+            _eval_all_ranks(config, eval_dir, name, logger, device)
             states["last"] += 1
-            with open(states_path, "w") as f:
-                yaml.dump(states, f)
+            if is_main_process():
+                with open(states_path, "w") as f:
+                    yaml.dump(states, f)
         else:
             time.sleep(POLL_SECONDS)
     return None

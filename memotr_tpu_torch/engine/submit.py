@@ -127,14 +127,15 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 
 def check_options(config: dict) -> None:
-    """Raise on the options the port does not have: the TPU mesh (one
-    process runs on one device)."""
+    """Raise on the options the port does not have: the TPU's in-process
+    mesh over local devices (one process runs on one device)."""
     for key in ("MESH_DEVICES", "MESH_SEQ_DEVICES"):
         if cfg_get(config, key) not in (None, 1):
             raise NotImplementedError(
-                f"{key}={config[key]}: the port runs in one process on one "
-                f"device (data parallelism and the lane mesh: ROADMAP.md, "
-                f"queue 1 item 9)")
+                f"{key}={config[key]}: the port runs one process per "
+                f"device; for several, start one process a device with "
+                f"`torchrun --nproc_per_node <n> -m memotr_tpu_torch.main "
+                f"--multi-host` (ROADMAP.md, 'Do not port')")
 
 
 # ------------------------------------------------------------ packed fetch
@@ -622,12 +623,15 @@ def decode_note(native: bool) -> str:
 
 def submit(config: dict, device: torch.device | str = "cuda"):
     """Submit entry: every sequence of the split, through
-    ``stream_sequences``.
+    ``stream_sequences``; in a process group, this rank's share of the
+    sorted sequences (``names[rank::world]``, as the JAX package shards
+    them over hosts), in either of its branches.
 
     Reads ``SUBMIT_DIR/train/config.yaml`` for the model and loads the
     reference-format ``.pth`` at ``SUBMIT_DIR/SUBMIT_MODEL``.  Runs on the
     GPU unless ``device="cpu"``."""
     from ..data.seq_dataset import SeqDataset
+    from ..utils.distributed import rank_and_world
     check_options(config)
     device = resolve_device(device)
     train_config = yaml_to_dict(
@@ -651,10 +655,14 @@ def submit(config: dict, device: torch.device | str = "cuda"):
         split_dir = os.path.join(root, dataset_name, "images/track/", split)
     else:
         split_dir = os.path.join(root, dataset_name, "images", split)
+    rank, world = rank_and_world()
     sequences = [(seq, SeqDataset(os.path.join(split_dir, seq),
                                   cfg_get(config, "EVAL_SHORT_SIDE"),
                                   cfg_get(config, "EVAL_MAX_SIDE")))
-                 for seq in sorted(os.listdir(split_dir))]
+                 for seq in sorted(os.listdir(split_dir))[rank::world]]
+    if not sequences:
+        print(f"Rank {rank} of {world}: no sequence to submit", flush=True)
+        return
     print(f"Frame decode: {decode_note(sequences[0][1].native)}", flush=True)
     stream_sequences(dataset_name, sequences,
                      os.path.join(config["SUBMIT_DIR"], split), model, config,

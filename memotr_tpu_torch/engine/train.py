@@ -10,9 +10,17 @@ the GPU unless ``device="cpu"``; never falls back to the CPU.
 ``VISUALIZE`` dumps each iteration's per-frame decoder outputs and track
 state into ``OUTPUTS_DIR/visualize_train/frame_<global iter>.npz``.
 
+In a process group (``main.py --multi-host`` under torchrun, or a group
+the caller started) each process trains on one device: it seeds with
+``SEED + rank``, loads its ``rank::world`` share of each epoch's clips
+(``BATCH_SIZE`` a process), and its ``Trainer`` reduces GT counts,
+gradients and loss logs over the group (``engine/trainer.py``).  Rank 0
+alone writes the logs, the checkpoints and the dumps; every rank returns
+once the last checkpoint is written.
+
 Not ported, and refused: the TPU mesh keys (``MESH_DEVICES``,
-``MESH_SEQ_DEVICES`` above 1, ``TOKEN_SHARD_AXIS``); one process trains on
-one device (data parallelism is ROADMAP item 9).
+``MESH_SEQ_DEVICES`` above 1, ``TOKEN_SHARD_AXIS``): one process runs on
+one device.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from ..config import (cfg_get, dict_to_yaml, missing_train_keys,
 from ..data import build_dataloader, build_dataset
 from ..log.logger import Logger, MetricLog
 from ..models.memotr import build_model
+from ..utils import distributed
 from ..utils.debug_dump import DebugDumper
 from ..utils.misc import set_seed
 from .submit import check_options, resolve_device
@@ -182,21 +191,26 @@ def _host_logs(logs: Dict, device: torch.device) -> Dict[str, float]:
 def train(config: dict, device: torch.device | str = "cuda") -> TrainRun:
     check_train_options(config)
     device = resolve_device(device)
+    rank, world = distributed.rank_and_world()
     logger = Logger(logdir=os.path.join(config["OUTPUTS_DIR"], "train"))
     logger.show(head="Configs:", log=config)
-    dict_to_yaml(config, os.path.join(logger.logdir, "config.yaml"))
-    set_seed(config["SEED"])
+    if logger.enabled:
+        dict_to_yaml(config, os.path.join(logger.logdir, "config.yaml"))
+    seed = set_seed(config["SEED"], rank)
 
     model = build_model(config)
     pretrain = load_pretrained(config, model, logger)
     distill = load_teacher(config, logger)
 
     dataset = build_dataset(config, split="train")
-    dataloader = build_dataloader(dataset, config, shuffle=True)
+    dataloader = build_dataloader(dataset, config, shuffle=True, rank=rank,
+                                  world_size=world)
     logger.show(head="Frame decode:", log="PIL (training clips are decoded "
                 "and augmented on the host by PIL and cv2)")
-    trainer = Trainer(model, config, device, seed=config["SEED"],
-                      distill=distill)
+    if world > 1:
+        logger.show(head=f"Data parallel: {world} processes, one device "
+                         f"each, {config['BATCH_SIZE']} clips a process")
+    trainer = Trainer(model, config, device, seed=seed, distill=distill)
 
     states = {"start_epoch": 0, "global_iters": 0}
     if config.get("RESUME"):
@@ -212,8 +226,9 @@ def train(config: dict, device: torch.device | str = "cuda") -> TrainRun:
     run = TrainRun(trainer, states, pretrain)
     train_dumper = DebugDumper(
         os.path.join(config["OUTPUTS_DIR"], "visualize_train"),
-        bool(cfg_get(config, "VISUALIZE")))
-    multi_checkpoint = bool(cfg_get(config, "MULTI_CHECKPOINT"))
+        bool(cfg_get(config, "VISUALIZE")) and logger.enabled)
+    multi_checkpoint = bool(cfg_get(config, "MULTI_CHECKPOINT")) \
+        and logger.enabled
     for epoch in range(states["start_epoch"], config["EPOCHS"]):
         dataloader.set_epoch(epoch)
         logger.show(head=f"[Epoch {epoch}] lrs={group_lrs(config, epoch)}")
@@ -258,10 +273,12 @@ def train(config: dict, device: torch.device | str = "cuda") -> TrainRun:
                          f"{int((time.time() - epoch_t0) // 60)} min",
                     log=metric_log)
         # the reference's checkpoint policy (train_engine.py:146-153)
-        if (config["DATASET"] == "DanceTrack" or config["EPOCHS"] < 100
-                or (epoch + 1) % 5 == 0):
+        if logger.enabled and (config["DATASET"] == "DanceTrack"
+                               or config["EPOCHS"] < 100
+                               or (epoch + 1) % 5 == 0):
             save_checkpoint(
                 os.path.join(config["OUTPUTS_DIR"], f"checkpoint_{epoch}.pth"),
                 model, trainer.optimizer, states,
                 host_rng_state(trainer.generator))
+    distributed.barrier()
     return run

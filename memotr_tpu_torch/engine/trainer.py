@@ -21,6 +21,20 @@
   teacher): a frozen teacher runs each frame under ``torch.no_grad()`` on
   empty track slots, and ``distill_frame_losses`` adds its weighted terms,
   averaged over the clip's frames, to the loss.
+- **Dropout** (``DROPOUT`` > 0): every frame's model forward and query
+  updater run inside their own seeds (``models/dropout.py``), drawn from
+  the trainer's seed, its rank and the micro-batch's ``global_iter``, so a
+  resumed run draws the same masks.
+- **Several processes** (``utils/distributed.py``), one device and one
+  share of the batch each: the ranks start from rank 0's parameters, the
+  per-frame GT counts are summed over them before the normalization, the
+  gradients are summed over them after the backward (before clipping the
+  global norm, once per optimizer step), and the loss logs are summed, so
+  every rank logs and steps as JAX's data mesh does on the global batch.
+  ``DistributedDataParallel`` does not fit the clip loop: it hooks one
+  ``forward`` per backward, while a clip runs T forwards and the query
+  updater outside ``forward``, and some parameters get no gradient in a
+  step (``track_attn`` without tracks, everything in no-grad frames).
 
 ``Trainer`` is the entry: it takes a collated clip batch
 (``data/loader.collate_clips``), runs on the GPU unless asked for the CPU,
@@ -41,8 +55,10 @@ from torch import nn
 
 from ..config import cfg_get
 from ..models.criterion import ClipCriterion, FrameGT, build_criterion
+from ..models.dropout import mix_seed
 from ..models.frame_step import model_forward, train_frame_step
 from ..structures.track_state import TrackState
+from ..utils import distributed
 from .submit import resolve_device
 
 LOSS_WEIGHT_KEYS = ("label_focal_loss", "box_l1_loss", "box_giou_loss")
@@ -227,7 +243,8 @@ def frame_distiller(distill: Dict, model, cs: Dict, b: int,
 
 def clip_loss(model, criterion: ClipCriterion, batch: Dict[str, torch.Tensor],
               generator: torch.Generator, cs: Dict,
-              distill: Optional[Dict] = None
+              distill: Optional[Dict] = None,
+              dropout_seed: Optional[int] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Loss over one clip batch: images (B, T, H, W, 3) normalized, mask
     (B, T, H, W), gt_* (B, T, G, ...), all on the model's device.
@@ -239,6 +256,12 @@ def clip_loss(model, criterion: ClipCriterion, batch: Dict[str, torch.Tensor],
     decoder's outputs) and ``frame{f}.track_query_embed`` /
     ``track_long_memory`` / ``track_mask`` (the track state the frame
     leaves), detached, for ``utils/debug_dump.py``.
+    ``dropout_seed``: the clip's dropout seed (None: no dropout); frame f's
+    forward and query updater draw from seeds folded from it.
+    In a process group the GT counts are the group's (summed), the loss
+    and its logs are this rank's share of the group's, and the
+    distillation terms (means over this rank's clips) are divided by the
+    group's size.
     Returns (total loss, logs)."""
     images = batch["images"]
     b, t = images.shape[:2]
@@ -247,7 +270,8 @@ def clip_loss(model, criterion: ClipCriterion, batch: Dict[str, torch.Tensor],
                              device=images.device)
     loss_acc: Dict[str, torch.Tensor] = {}
     frame_logs: Dict[str, torch.Tensor] = {}
-    n_gts_total = torch.zeros((), device=images.device)
+    frame_gts: List[torch.Tensor] = []
+    frame_raw: Dict[str, Tuple[int, torch.Tensor]] = {}
     distill_acc = torch.zeros((), device=images.device)
     terms = None if distill is None else frame_distiller(
         distill, model, cs, b, images.device)
@@ -258,12 +282,15 @@ def clip_loss(model, criterion: ClipCriterion, batch: Dict[str, torch.Tensor],
                      labels=batch["gt_labels"][:, f],
                      ids=batch["gt_ids"][:, f], mask=batch["gt_mask"][:, f])
         outputs = {} if cs.get("visualize") else None
+        seeds = None if dropout_seed is None else (
+            mix_seed(dropout_seed, f, 0), mix_seed(dropout_seed, f, 1))
         with torch.set_grad_enabled(f >= k and torch.is_grad_enabled()):
             losses, n_gts, state = train_frame_step(
                 model, criterion, images[:, f], batch["mask"][:, f], gt,
                 state, generator, cs["update_threshold"], cs["tp_drop_ratio"],
                 cs["fp_insert_ratio"], no_augment=f < k - 1,
-                postprocess=f < t - 1, distill=terms, outputs=outputs)
+                postprocess=f < t - 1, distill=terms, outputs=outputs,
+                dropout_seeds=seeds)
         if outputs is not None:
             dbg = frame_logs.setdefault("debug", {})
             for name, v in outputs.items():
@@ -273,20 +300,21 @@ def clip_loss(model, criterion: ClipCriterion, batch: Dict[str, torch.Tensor],
             dbg[f"frame{f}.track_mask"] = state.mask
         for name in DISTILL_KEYS:
             if name in losses:
-                v = losses.pop(name)
+                v = losses.pop(name) / world
                 distill_acc = distill_acc \
                     + distill["weights"].get(name, 1.0) * v / t
                 frame_logs[name] = frame_logs.get(name, 0.0) + v.detach() / t
         for name, v in losses.items():
             loss_acc[name] = loss_acc.get(name, 0.0) + v * cs["frame_weight"]
-        frame_gts = n_gts.sum().float()
-        n_gts_total = n_gts_total + frame_gts
-        frame_norm = (frame_gts / world).clamp(min=1.0) * world
+        frame_gts.append(n_gts.sum().float())
         for name in ("box_l1_loss", "box_giou_loss", "label_focal_loss"):
             if name in losses:
-                frame_logs[f"frame{f}_{name}"] = losses[name].detach() \
-                    / frame_norm
+                frame_raw[f"frame{f}_{name}"] = (f, losses[name].detach())
 
+    counts = distributed.all_reduce_sum_(torch.stack(frame_gts))
+    for key, (f, v) in frame_raw.items():
+        frame_logs[key] = v / ((counts[f] / world).clamp(min=1.0) * world)
+    n_gts_total = counts.sum()
     normalizer = (n_gts_total / world).clamp(min=1.0) * world
     weights = cs["loss_weights"]
 
@@ -315,24 +343,40 @@ def _fill_missing_grads(params: List[nn.Parameter]) -> int:
     return len(missing)
 
 
+def sum_logs_over_ranks(logs: Dict) -> Dict:
+    """The loss logs (each rank's share) summed over the process group, in
+    one collective; ``n_gts`` is the group's already."""
+    names = [k for k, v in logs.items()
+             if k != "n_gts" and isinstance(v, torch.Tensor) and v.dim() == 0]
+    if distributed.rank_and_world()[1] > 1 and names:
+        summed = distributed.all_reduce_sum_(
+            torch.stack([logs[k].float() for k in names]))
+        logs.update(zip(names, summed.unbind()))
+    return logs
+
+
 def make_train_step(model, criterion: ClipCriterion,
                     optimizer: torch.optim.Optimizer, config_static: Dict,
-                    clip_max_norm: float, distill: Optional[Dict] = None):
+                    clip_max_norm: float, distill: Optional[Dict] = None,
+                    dropout_seed: Callable[[], Optional[int]] = lambda: None):
     """step(batch, generator, lrs) -> logs: the clip loss (with
-    ``distill``'s terms, ``clip_loss``), its gradient, clipping and one
-    AdamW step.  ``logs["grad_norm"]`` is the global norm
-    of the trainable parameters' gradients before clipping;
-    ``logs["params_without_grad"]`` counts the trainable parameters the
-    loss did not reach."""
+    ``distill``'s terms and the clip's seed ``dropout_seed()``,
+    ``clip_loss``), its gradient (summed over the process group), clipping
+    and one AdamW step.
+    ``logs["grad_norm"]`` is the global norm of the trainable parameters'
+    gradients before clipping; ``logs["params_without_grad"]`` counts the
+    trainable parameters the loss did not reach on this rank."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def step(batch, generator, lrs):
         set_lrs(optimizer, lrs)
         optimizer.zero_grad(set_to_none=True)
         total, logs = clip_loss(model, criterion, batch, generator,
-                                config_static, distill)
+                                config_static, distill, dropout_seed())
         total.backward()
         logs["params_without_grad"] = _fill_missing_grads(params)
+        distributed.all_reduce_grads_(params)
+        logs = sum_logs_over_ranks(logs)
         logs["grad_norm"] = torch.nn.utils.clip_grad_norm_(params,
                                                            clip_max_norm)
         optimizer.step()
@@ -344,23 +388,25 @@ def make_train_step(model, criterion: ClipCriterion,
 def make_accum_steps(model, criterion: ClipCriterion,
                      optimizer: torch.optim.Optimizer, config_static: Dict,
                      clip_max_norm: float, accumulation: int,
-                     distill: Optional[Dict] = None):
+                     distill: Optional[Dict] = None,
+                     dropout_seed: Callable[[], Optional[int]] = lambda: None):
     """Gradient accumulation: (grad_step, apply_step).
     ``grad_step(batch, generator) -> logs`` adds the gradient of the clip
     loss / ``accumulation`` to the parameters' ``.grad``;
-    ``apply_step(lrs) -> grad_norm`` clips the summed gradient, takes one
-    AdamW step and clears the gradients."""
+    ``apply_step(lrs) -> grad_norm`` sums the gradients over the process
+    group, clips them, takes one AdamW step and clears them."""
     params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def grad_step(batch, generator):
         total, logs = clip_loss(model, criterion, batch, generator,
-                                config_static, distill)
+                                config_static, distill, dropout_seed())
         (total / accumulation).backward()
-        return logs
+        return sum_logs_over_ranks(logs)
 
     def apply_step(lrs):
         set_lrs(optimizer, lrs)
         _fill_missing_grads(params)
+        distributed.all_reduce_grads_(params)
         grad_norm = torch.nn.utils.clip_grad_norm_(params, clip_max_norm)
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
@@ -378,7 +424,11 @@ class Trainer:
     ``model``: a ``build_model`` model (float32 parameters, ``DTYPE``
     compute), moved to ``device`` and put in training mode.  Runs on the GPU
     unless ``device="cpu"``; raises when CUDA is asked for and absent.  The
-    track-selection draws come from a generator seeded with ``seed``.
+    track-selection draws come from a generator seeded with ``seed``, the
+    dropout masks from seeds folded from ``seed``, the rank and
+    ``global_iter``.  The loss normalization's ``world_size`` (JAX's
+    ``static_config``) is the process group's size, and in a group of more
+    than one the model starts from rank 0's parameters.
     ``distill``: None, or ``{"model": teacher, "weights": {term: w}}``
     (``clip_loss``); the teacher is moved to ``device``, put in eval mode
     and frozen, and is neither in the optimizer nor in ``model``.
@@ -386,10 +436,11 @@ class Trainer:
     ``make_train_step`` and ``make_accum_steps`` on this model."""
 
     def __init__(self, model, config: dict, device: torch.device | str = "cuda",
-                 seed: int = 0, world_size: int = 1,
-                 distill: Optional[Dict] = None):
+                 seed: int = 0, distill: Optional[Dict] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).train()
+        distributed.broadcast_module_(self.model)
+        rank, world_size = distributed.rank_and_world()
         self.distill = distill
         if distill is not None:
             distill["model"].to(self.device).eval().requires_grad_(False)
@@ -398,19 +449,29 @@ class Trainer:
         self.config_static = static_config(config, model, world_size)
         self.optimizer = make_optimizer(param_groups(model), config)
         self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.dropout_base = mix_seed(seed, rank) \
+            if cfg_get(config, "DROPOUT") > 0 else None
         self.accumulation = int(cfg_get(config, "ACCUMULATION_STEPS"))
         clip = cfg_get(config, "CLIP_MAX_NORM")
         self.train_step = make_train_step(model, self.criterion, self.optimizer,
-                                          self.config_static, clip, distill)
+                                          self.config_static, clip, distill,
+                                          self.clip_seed)
         self.grad_step, self.apply_step = make_accum_steps(
             model, self.criterion, self.optimizer, self.config_static, clip,
-            self.accumulation, distill)
+            self.accumulation, distill, self.clip_seed)
         # counted as the JAX loop counts them (memotr_tpu/engine/train.py):
         # ``global_iter`` once per micro-batch, ``micro_steps`` within the
         # current ``epoch``
         self.micro_steps = 0
         self.global_iter = 0
         self.epoch: Optional[int] = None
+
+    def clip_seed(self) -> Optional[int]:
+        """The dropout seed of the current micro-batch (None without
+        dropout)."""
+        if self.dropout_base is None:
+            return None
+        return mix_seed(self.dropout_base, self.global_iter)
 
     def batch_to_device(self, batch: Dict[str, np.ndarray]
                         ) -> Dict[str, torch.Tensor]:

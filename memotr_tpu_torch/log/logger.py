@@ -5,10 +5,10 @@
 directory: ``log.txt``, a YAML file (the resolved ``config.yaml``) and the
 ``scalars.jsonl`` stream, one JSON record of averaged metrics per line.
 ``MetricLog`` keeps a ``Value`` (sliding window of 100 and a global
-average) per metric name.  One process only: ``MetricLog.sync`` has no
-other process to average with, and raises in a multi-process run, which
-waits for the port's data-parallel training (ROADMAP item 9).  ``yaml`` is
-imported on first use.
+average) per metric name; in a process group ``MetricLog.sync`` sums each
+metric's ``(total_sum, total_count)`` over the ranks, as the JAX package's
+``process_allgather`` does.  A ``Logger`` writes and prints on rank 0
+only.  ``yaml`` is imported on first use.
 """
 from __future__ import annotations
 
@@ -19,11 +19,7 @@ from typing import Dict
 
 import numpy as np
 
-
-def world_size() -> int:
-    import torch.distributed as dist
-    return (dist.get_world_size()
-            if dist.is_available() and dist.is_initialized() else 1)
+from ..utils.distributed import is_main_process, sum_over_ranks
 
 
 class Value:
@@ -57,11 +53,13 @@ class MetricLog:
         self.metrics[name].update(value)
 
     def sync(self):
-        """Averages the metrics over processes: nothing to do in one."""
-        if world_size() > 1:
-            raise NotImplementedError(
-                "metric sync across processes is not ported to PyTorch "
-                "(ROADMAP.md, queue 1 item 9: DDP)")
+        """Each metric's global totals: ``(total_sum, total_count)`` summed
+        over the process group (nothing to do in one process)."""
+        totals = sum_over_ranks({n: (v.total_sum, v.total_count)
+                                 for n, v in self.metrics.items()})
+        for n, (total, count) in totals.items():
+            self.metrics[n].total_sum = total
+            self.metrics[n].total_count = count
 
     def __str__(self):
         return ", ".join(f"{k}={v.avg:.4f}" for k, v in
@@ -71,13 +69,19 @@ class MetricLog:
 class Logger:
     def __init__(self, logdir: str):
         self.logdir = logdir
-        os.makedirs(logdir, exist_ok=True)
+        self.enabled = is_main_process()
+        if self.enabled:
+            os.makedirs(logdir, exist_ok=True)
 
     def show(self, head: str = "", log=None):
-        print(f"{head} {log if log is not None else ''}".strip(), flush=True)
+        if self.enabled:
+            print(f"{head} {log if log is not None else ''}".strip(),
+                  flush=True)
 
     def write(self, log, filename: str = "log.txt", mode: str = "a",
               head: str = ""):
+        if not self.enabled:
+            return
         with open(os.path.join(self.logdir, filename), mode) as f:
             if filename.endswith(".yaml"):
                 import yaml

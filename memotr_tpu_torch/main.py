@@ -13,7 +13,16 @@ key of the file (or a default key, ``config.update_config``) and wins.
 ``--device`` (default ``cuda``) is the one flag the JAX CLI lacks: the way
 to ask for the CPU.  ``--mode eval`` submits on ``EVAL_DATA_SPLIT`` and
 scores (``engine/eval.py``; ``--eval-mode continue`` follows the epoch
-checkpoints).  ``--multi-host`` (ROADMAP item 9) is not ported and raises.
+checkpoints).  ``--multi-host`` runs one process a device under torchrun,
+as JAX's flag starts ``jax.distributed``:
+
+    torchrun --nproc_per_node 2 -m memotr_tpu_torch.main --multi-host \
+        --mode train --config-path configs/train_dancetrack.yaml ...
+
+Each process joins the group torchrun describes (NCCL on ``cuda``, gloo
+with ``--device cpu``) on device ``cuda:LOCAL_RANK``; training shares the
+batch and reduces the gradients (``engine/train.py``), submit and eval
+shard the sequences (``engine/submit.py``, ``engine/eval.py``).
 """
 from __future__ import annotations
 
@@ -46,7 +55,7 @@ def parse_option(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     for flag in FLAGS:
         p.add_argument(f"--{flag}", type=str, default=None)
     p.add_argument("--multi-host", action="store_true",
-                   help="multi-process runs (not ported: raises)")
+                   help="one process a device under torchrun")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
     return p.parse_args(argv)
@@ -77,19 +86,24 @@ def main(argv: Optional[Sequence[str]] = None):
     """Runs the mode; returns what ``train``, ``submit`` or ``evaluate``
     returns."""
     args = parse_option(argv)
+    device = args.device
     if args.multi_host:
-        raise NotImplementedError("--multi-host: multi-process runs are not "
-                                  "ported to PyTorch (ROADMAP.md, queue 1 "
-                                  "item 9)")
+        import torch
+
+        from .utils.distributed import init_from_env
+        kind = torch.device(device).type
+        _, _, local_rank = init_from_env(kind)
+        if kind == "cuda":
+            device = f"cuda:{local_rank}"
     config = config_from_args(args)
     if args.mode == "train":
         from .engine.train import train
-        return train(config, device=args.device)
+        return train(config, device=device)
     if args.mode == "eval":
         from .engine.eval import evaluate
-        return evaluate(config, device=args.device)
+        return evaluate(config, device=device)
     from .engine.submit import submit
-    return submit(config, device=args.device)
+    return submit(config, device=device)
 
 
 if __name__ == "__main__":

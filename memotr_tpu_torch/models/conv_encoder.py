@@ -7,7 +7,9 @@ Per layer, per pyramid level, a pre-norm residual conv block
 
 with padded pixels zeroed before the conv, so padding never reaches the
 valid region; then the windowed encoder's cross-level fusion
-(``cross_level_fuse``).  A final LayerNorm closes the stack.  The sine
+(``cross_level_fuse``).  A final LayerNorm closes the stack.  Dropout
+follows the conv and the FFN's hidden activation and output, per level;
+``USE_CHECKPOINT`` checkpoints each layer (``models/dropout.py``).  The sine
 position embeddings are unused (the convolution carries position); the
 decoder still gets them.  The 3x3 conv and the dense layers are library
 calls (cuDNN, cuBLAS): no hand-written kernel.
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .dropout import Dropout, run_layer
 from .layers import LayerNorm, Linear
 from .resnet import Conv2d
 from .windowed_encoder import (Shapes, cross_level_fuse, flatten_levels,
@@ -34,8 +37,11 @@ from .windowed_encoder import (Shapes, cross_level_fuse, flatten_levels,
 class ConvEncoderLayer(nn.Module):
     def __init__(self, d_model: int, d_ffn: int, n_levels: int,
                  use_bottomup: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
+        self.dropout_conv = Dropout(dropout)
+        self.dropout_hidden = Dropout(dropout)
+        self.dropout_ffn = Dropout(dropout)
         self.conv3x3 = Conv2d(d_model, d_model, 3, padding=1,
                               compute_dtype=dtype)
         self.norm1 = LayerNorm(d_model)
@@ -53,11 +59,13 @@ class ConvEncoderLayer(nn.Module):
                 ) -> List[torch.Tensor]:
         """levels (B, H_l, W_l, C); masks (B, H_l, W_l) True = pad."""
         out = []
-        for x, m in zip(levels, masks):
+        for lvl, (x, m) in enumerate(zip(levels, masks)):
             xz = self.norm1(x).to(x.dtype).masked_fill(m[..., None], 0.0)
-            x = x + self.conv3x3(xz.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-            x = x + self.linear2(F.relu(self.linear1(
-                self.norm2(x).to(x.dtype))))
+            c = self.conv3x3(xz.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            x = x + self.dropout_conv(c, call=lvl)
+            h = F.relu(self.linear1(self.norm2(x).to(x.dtype)))
+            f = self.linear2(self.dropout_hidden(h, call=lvl))
+            x = x + self.dropout_ffn(f, call=lvl)
             out.append(x)
         return cross_level_fuse(out, self.topdown_mix, self.bottomup_mix)
 
@@ -68,10 +76,13 @@ class ConvEncoder(nn.Module):
 
     def __init__(self, num_layers: int, d_model: int, d_ffn: int,
                  n_levels: int, use_bottomup: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 use_checkpoint: bool = False):
         super().__init__()
+        self.use_checkpoint = use_checkpoint
         self.layers = nn.ModuleList(
-            ConvEncoderLayer(d_model, d_ffn, n_levels, use_bottomup, dtype)
+            ConvEncoderLayer(d_model, d_ffn, n_levels, use_bottomup, dtype,
+                             dropout)
             for _ in range(num_layers))
         self.final_norm = LayerNorm(d_model)
 
@@ -82,6 +93,7 @@ class ConvEncoder(nn.Module):
         levels = split_levels(src, spatial_shapes)
         masks = split_levels(padding_mask, spatial_shapes)
         for layer in self.layers:
-            levels = layer(levels, masks)
+            levels = run_layer(layer, levels, masks,
+                               use_checkpoint=self.use_checkpoint)
         return flatten_levels([self.final_norm(lv).to(lv.dtype)
                                for lv in levels])

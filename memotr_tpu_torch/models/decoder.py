@@ -10,6 +10,12 @@ and iterative box refinement (counterpart of
 - Box refinement: ``ref = sigmoid(bbox_head(out) + logit(ref))``; the
   carried reference is detached.
 - ``queries`` records each layer's *input* embedding.
+- ``EXTRA_TRACK_ATTN``: merging layers first run a self-attention over the
+  track queries alone (``track_attn``, then ``norm4``).  The JAX package
+  creates it only in merging layers, and so does the port.
+- Dropout follows each attention and the FFN's hidden activation and
+  output, and acts on the attention probabilities; ``USE_CHECKPOINT``
+  checkpoints each layer (``models/dropout.py``).
 
 The per-layer class/box heads belong to the top-level model (reference
 names ``class_embed.{i}`` / ``bbox_embed.{i}``); the decoder holds the box
@@ -25,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.misc import inverse_sigmoid, pos_to_pos_embed
+from .dropout import Dropout, run_layer
 from .layers import MLP, LayerNorm, Linear, MultiheadAttention
 from .msda_module import MSDeformAttn
 
@@ -32,10 +39,19 @@ from .msda_module import MSDeformAttn
 class DecoderLayer(nn.Module):
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int,
                  n_points: int, n_det_queries: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 track_attn: bool = False):
         super().__init__()
         self.n_det = n_det_queries
-        self.self_attn = MultiheadAttention(d_model, n_heads, dtype=dtype)
+        if track_attn:
+            self.track_attn = MultiheadAttention(d_model, n_heads,
+                                                 dtype=dtype, dropout=dropout)
+            self.norm4 = LayerNorm(d_model)
+            self.dropout_track = Dropout(dropout)
+        else:
+            self.track_attn = None
+        self.self_attn = MultiheadAttention(d_model, n_heads, dtype=dtype,
+                                            dropout=dropout)
         self.norm2 = LayerNorm(d_model)
         self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points,
                                        dtype=dtype)
@@ -43,6 +59,10 @@ class DecoderLayer(nn.Module):
         self.linear1 = Linear(d_model, d_ffn, compute_dtype=dtype)
         self.linear2 = Linear(d_ffn, d_model, compute_dtype=dtype)
         self.norm3 = LayerNorm(d_model)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.dropout3 = Dropout(dropout)
+        self.dropout4 = Dropout(dropout)
 
     def forward(self, tgt, query_pos, reference_points_input, src,
                 spatial_shapes, query_mask, src_padding_mask,
@@ -56,14 +76,24 @@ class DecoderLayer(nn.Module):
             key_mask = query_mask.clone()
             key_mask[:, nd:] = True
 
+        if self.track_attn is not None and merge_det_track:
+            qk_t = (tgt + query_pos.to(tgt.dtype))[:, nd:]
+            t2 = self.track_attn(qk_t, qk_t, tgt[:, nd:],
+                                 key_padding_mask=query_mask[:, nd:])
+            t = self.norm4(tgt[:, nd:] + self.dropout_track(t2))
+            # JAX's concatenate promotes the detection rows to float32
+            dt = torch.promote_types(tgt.dtype, t.dtype)
+            tgt = torch.cat([tgt[:, :nd].to(dt), t.to(dt)], dim=1)
+
         qk = tgt + query_pos.to(tgt.dtype)
-        tgt = self.norm2(tgt + self.self_attn(qk, qk, tgt,
-                                              key_padding_mask=key_mask))
+        tgt2 = self.self_attn(qk, qk, tgt, key_padding_mask=key_mask)
+        tgt = self.norm2(tgt + self.dropout2(tgt2))
         tgt2 = self.cross_attn(tgt + query_pos.to(tgt.dtype),
                                reference_points_input, src, spatial_shapes,
                                src_padding_mask)
-        tgt = self.norm1(tgt + tgt2)
-        tgt = self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
+        tgt = self.norm1(tgt + self.dropout1(tgt2))
+        h = self.linear2(self.dropout3(F.relu(self.linear1(tgt))))
+        tgt = self.norm3(tgt + self.dropout4(h))
         if not merge_det_track:
             tgt = torch.cat([tgt[:, :nd], tgt_in[:, nd:].to(tgt.dtype)], dim=1)
         return tgt
@@ -86,16 +116,21 @@ class Decoder(nn.Module):
                  n_levels: int, n_heads: int, n_points: int,
                  n_det_queries: int = 300, merge_det_track_layer: int = 0,
                  use_dab: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 extra_track_attn: bool = False,
+                 use_checkpoint: bool = False):
         super().__init__()
         self.d_model = d_model
         self.n_det = n_det_queries
         self.merge_det_track_layer = merge_det_track_layer
         self.use_dab = use_dab
+        self.use_checkpoint = use_checkpoint
         self.layers = nn.ModuleList(
             DecoderLayer(d_model, d_ffn, n_levels, n_heads, n_points,
-                         n_det_queries, dtype)
-            for _ in range(num_layers))
+                         n_det_queries, dtype, dropout,
+                         track_attn=extra_track_attn
+                         and lid >= merge_det_track_layer)
+            for lid in range(num_layers))
         if use_dab:
             self.ref_point_head = MLP(2 * d_model, d_model, d_model, 2,
                                       dtype=dtype)
@@ -134,8 +169,9 @@ class Decoder(nn.Module):
                 qp = query_pos
 
             queries.append(output)
-            output = layer(output, qp, ref_input, src, spatial_shapes,
-                           query_mask, src_padding_mask, merge)
+            output = run_layer(layer, output, qp, ref_input, src,
+                               spatial_shapes, query_mask, src_padding_mask,
+                               merge, use_checkpoint=self.use_checkpoint)
 
             cls_logits = class_embed[lid](output.float())
             delta = self.bbox_embed[lid](output)

@@ -11,6 +11,7 @@ import torch
 from ..structures.track_state import TrackState
 from ..utils.misc import logits_to_scores
 from .criterion import ClipCriterion, FrameGT
+from .dropout import dropout_seed
 from .runtime_tracker import runtime_tracker_step
 from .track_selection import select_active_tracks_train
 
@@ -35,7 +36,8 @@ def train_frame_step(model, criterion: ClipCriterion, images: torch.Tensor,
                      tp_drop_ratio: float = 0.0, fp_insert_ratio: float = 0.0,
                      no_augment: bool = False, postprocess: bool = True,
                      distill: Optional[Callable] = None,
-                     outputs: Optional[Dict] = None
+                     outputs: Optional[Dict] = None,
+                     dropout_seeds: Optional[Tuple[int, int]] = None
                      ) -> Tuple[Dict, torch.Tensor, TrackState]:
     """One training frame -> (loss dict, n_gts (B,), next TrackState).
     ``postprocess=False`` (a clip's last frame) skips the selection and the
@@ -44,8 +46,13 @@ def train_frame_step(model, criterion: ClipCriterion, images: torch.Tensor,
     teacher->student terms (``engine/trainer.py: distill_frame_losses``),
     which join the loss dict under their own names.  ``outputs``, when
     given, receives the decoder's ``pred_logits``, ``pred_boxes`` and
-    ``last_ref_pts``, detached (the ``VISUALIZE`` dumps)."""
-    out = model_forward(model, images, mask, state)
+    ``last_ref_pts``, detached (the ``VISUALIZE`` dumps).
+    ``dropout_seeds``: (the forward's, the query updater's) dropout seeds,
+    as JAX draws separate keys for the two (``models/dropout.py``); None:
+    no dropout."""
+    model_seed, updater_seed = dropout_seeds or (None, None)
+    with dropout_seed(model_seed):
+        out = model_forward(model, images, mask, state)
     if outputs is not None:
         outputs.update({k: out[k].detach() for k in
                         ("pred_logits", "pred_boxes", "last_ref_pts")})
@@ -57,7 +64,8 @@ def train_frame_step(model, criterion: ClipCriterion, images: torch.Tensor,
         state = select_active_tracks_train(
             state, new_cand, um_cand, generator, update_threshold,
             tp_drop_ratio, fp_insert_ratio, no_augment)
-        state = apply_query_updater(model.query_updater, state)
+        with dropout_seed(updater_seed):
+            state = apply_query_updater(model.query_updater, state)
     return losses, n_gts, state
 
 

@@ -5,7 +5,9 @@ attention on the coarse ones (counterpart of
 Each layer runs a ``WindowedEncoderLayer`` (``fine``, kernel K2) over the
 levels below ``HYBRID_DEFORM_MIN_LEVEL`` and the deformable ``EncoderLayer``
 (``coarse``, kernel K1) over the others, then fuses the whole pyramid
-across levels, so both groups see each other every layer.
+across levels, so both groups see each other every layer.  Dropout is
+that of the two layers; ``USE_CHECKPOINT`` checkpoints each hybrid layer
+whole (``models/dropout.py``).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import List, Optional
 import torch
 from torch import nn
 
+from .dropout import run_layer
 from .encoder import EncoderLayer, encoder_reference_points
 from .layers import LayerNorm, Linear
 from .windowed_encoder import (Shapes, WindowedEncoderLayer, cross_level_fuse,
@@ -26,14 +29,15 @@ class HybridEncoderLayer(nn.Module):
                  grid: bool = False, use_lepe: bool = True,
                  use_relpos: bool = True, prenorm: bool = False,
                  use_bottomup: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.fine = WindowedEncoderLayer(
             d_model, d_ffn, n_heads, n_fine, window, grid=grid,
             use_lepe=use_lepe, use_bottomup=use_bottomup,
-            use_relpos=use_relpos, prenorm=prenorm, dtype=dtype)
+            use_relpos=use_relpos, prenorm=prenorm, dtype=dtype,
+            dropout=dropout)
         self.coarse = EncoderLayer(d_model, d_ffn, n_coarse, n_heads,
-                                   n_points, dtype)
+                                   n_points, dtype, dropout)
         self.topdown_mix = Linear(d_model, d_model, compute_dtype=dtype)
         self.bottomup_mix = Linear(d_model, d_model, compute_dtype=dtype) \
             if use_bottomup else None
@@ -64,15 +68,18 @@ class HybridEncoder(nn.Module):
                  deform_min_level: int = 1, window: int = 8,
                  use_lepe: bool = True, use_bottomup: bool = True,
                  use_relpos: bool = True, prenorm: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 use_checkpoint: bool = False):
         super().__init__()
         self.n_fine = max(1, min(deform_min_level, n_levels - 1))
+        self.use_checkpoint = use_checkpoint
         self.layers = nn.ModuleList(
             HybridEncoderLayer(d_model, d_ffn, n_heads, n_points, self.n_fine,
                                n_levels - self.n_fine, window,
                                grid=i % 2 == 1, use_lepe=use_lepe,
                                use_relpos=use_relpos, prenorm=prenorm,
-                               use_bottomup=use_bottomup, dtype=dtype)
+                               use_bottomup=use_bottomup, dtype=dtype,
+                               dropout=dropout)
             for i in range(num_layers))
         self.final_norm: Optional[nn.Module] = LayerNorm(d_model) \
             if prenorm else None
@@ -87,7 +94,9 @@ class HybridEncoder(nn.Module):
         coarse_refs = encoder_reference_points(
             coarse_shapes, valid_ratios[:, self.n_fine:])
         for layer in self.layers:
-            levels = layer(levels, masks, poss, coarse_refs, coarse_shapes)
+            levels = run_layer(layer, levels, masks, poss, coarse_refs,
+                               coarse_shapes,
+                               use_checkpoint=self.use_checkpoint)
         if self.final_norm is not None:
             levels = [self.final_norm(lv).to(lv.dtype) for lv in levels]
         return flatten_levels(levels)

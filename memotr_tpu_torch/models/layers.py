@@ -4,7 +4,9 @@ Parameters are float32; matmuls run in the module's compute dtype
 (``dtype``), and LayerNorm runs in float32 with eps 1e-5.  Names follow the
 reference ``state_dict``: ``MLP.layers.{i}``, ``FFN.linear1/linear2/norm``,
 and the joint ``in_proj_weight``/``in_proj_bias`` of
-``nn.MultiheadAttention``.
+``nn.MultiheadAttention``.  Dropout sites (``models/dropout.py``) are
+where the JAX package has them: the FFN's hidden activation and output,
+and the attention probabilities.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .dropout import Dropout
 
 
 class Linear(nn.Linear):
@@ -60,18 +64,20 @@ class MLP(nn.Module):
 
 
 class FFN(nn.Module):
-    """linear-relu-linear + residual + LayerNorm."""
+    """linear-relu-dropout-linear-dropout + residual + LayerNorm."""
 
     def __init__(self, d_model: int, d_ffn: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.linear1 = Linear(d_model, d_ffn, compute_dtype=dtype)
         self.linear2 = Linear(d_ffn, d_model, compute_dtype=dtype)
         self.norm = LayerNorm(d_model)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.linear2(F.relu(self.linear1(x)))
-        return self.norm(x + h)
+        h = self.linear2(self.dropout1(F.relu(self.linear1(x))))
+        return self.norm(x + self.dropout2(h))
 
 
 class MultiheadAttention(nn.Module):
@@ -79,11 +85,12 @@ class MultiheadAttention(nn.Module):
     parameter layout, written out in plain torch ops (batch-first).
 
     ``key_padding_mask`` True = ignore that key; masked logits are filled
-    with ``finfo(float32).min`` and the softmax runs in float32.
+    with ``finfo(float32).min`` and the softmax runs in float32; dropout
+    acts on the probabilities.
     """
 
     def __init__(self, embed_dim: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         assert embed_dim % num_heads == 0
         self.num_heads = num_heads
@@ -91,6 +98,7 @@ class MultiheadAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = Linear(embed_dim, embed_dim, compute_dtype=dtype)
+        self.dropout = Dropout(dropout)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -117,7 +125,7 @@ class MultiheadAttention(nn.Module):
             neg = torch.finfo(torch.float32).min
             logits = logits.masked_fill(key_padding_mask[:, None, None, :],
                                         neg)
-        attn = torch.softmax(logits, dim=-1).to(vh.dtype)
+        attn = self.dropout(torch.softmax(logits, dim=-1).to(vh.dtype))
         out = torch.matmul(attn, vh)
         b, h, n, d = out.shape
         return self.out_proj(out.transpose(1, 2).reshape(b, n, h * d))

@@ -10,7 +10,9 @@ Parameter names follow the reference MeMOTR ``state_dict`` (the key set
 ``memotr_tpu/checkpoint/torch_convert.py`` parses), so a reference ``.pth``
 loads with ``load_state_dict`` and ``convert_torch_state_dict`` turns this
 model's state dict into the JAX parameter trees.  The query updater is a
-submodule (``query_updater.*``), as in the reference.
+submodule (``query_updater.*``), as in the reference.  ``DROPOUT``,
+``EXTRA_TRACK_ATTN`` and ``USE_CHECKPOINT`` are those of the JAX package
+(``models/dropout.py``, ``models/decoder.py``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from torch import nn
 from ..config import cfg_get, num_classes_for_dataset
 from ..utils.misc import inverse_sigmoid
 from .decoder import bbox_head
+from .dropout import number_sites
 from .layers import Linear
 from .position_embedding import sine_position_embedding
 from .query_updater import QueryUpdater
@@ -44,11 +47,18 @@ def _downsample_mask(mask: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 
 class GroupNorm32(nn.GroupNorm):
-    """GroupNorm computed in float32 whatever the input dtype."""
+    """GroupNorm computed in float32 whatever the input dtype.  A group of
+    one value (a 1x1 level with as many groups as channels) normalizes to
+    0, as flax's GroupNorm computes it; torch's ``group_norm`` refuses a
+    batch of one such sample, so that case is written out."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.num_groups, self.weight,
-                            self.bias, self.eps)
+        x = x.float()
+        if x[0].numel() == self.num_groups:
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            return (x - x) * self.weight.view(shape) + self.bias.view(shape)
+        return F.group_norm(x, self.num_groups, self.weight, self.bias,
+                            self.eps)
 
 
 class MeMOTR(nn.Module):
@@ -67,7 +77,9 @@ class MeMOTR(nn.Module):
                  hybrid_deform_min_level: int = 1,
                  update_threshold: float = 0.5,
                  long_memory_lambda: float = 0.01,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 extra_track_attn: bool = False,
+                 use_checkpoint: bool = False):
         super().__init__()
         c = hidden_dim
         self.num_classes = num_classes
@@ -107,7 +119,9 @@ class MeMOTR(nn.Module):
             use_lepe=windowed_lepe, use_bottomup=windowed_bottomup,
             use_relpos=windowed_relpos, prenorm=windowed_prenorm,
             shared_cpb=windowed_shared_cpb,
-            deform_min_level=hybrid_deform_min_level, dtype=dtype)
+            deform_min_level=hybrid_deform_min_level, dtype=dtype,
+            dropout=dropout, extra_track_attn=extra_track_attn,
+            use_checkpoint=use_checkpoint)
         if not use_dab:
             # D-DETR infers 2-d reference points from the positional half
             self.transformer.reference_points = nn.Linear(c, 2)
@@ -127,7 +141,9 @@ class MeMOTR(nn.Module):
 
         self.query_updater = QueryUpdater(
             c, ffn_dim, use_dab=use_dab, update_threshold=update_threshold,
-            long_memory_lambda=long_memory_lambda, dtype=dtype)
+            long_memory_lambda=long_memory_lambda, dtype=dtype,
+            dropout=dropout)
+        number_sites(self)
 
     def forward(self, images: torch.Tensor, img_mask: torch.Tensor,
                 track_query_embed: torch.Tensor, track_ref_pts: torch.Tensor,
@@ -209,15 +225,6 @@ class MeMOTR(nn.Module):
 def build_model(config: dict) -> MeMOTR:
     """Build from a flat UPPER_CASE config; reads the same keys as
     ``memotr_tpu.models.memotr.build_model`` (plus the updater's)."""
-    if cfg_get(config, "EXTRA_TRACK_ATTN"):
-        raise NotImplementedError("EXTRA_TRACK_ATTN is not ported to PyTorch "
-                                  "(ROADMAP.md, queue 1)")
-    if cfg_get(config, "DROPOUT") > 0:
-        raise NotImplementedError("DROPOUT > 0 is not ported to PyTorch "
-                                  "(ROADMAP.md, queue 1)")
-    if cfg_get(config, "USE_CHECKPOINT"):
-        raise NotImplementedError("USE_CHECKPOINT is not ported to PyTorch "
-                                  "(ROADMAP.md, queue 1)")
     encoder_type = cfg_get(config, "ENCODER_TYPE")
     if (cfg_get(config, "WINDOWED_PRENORM")
             and encoder_type in ("windowed", "hybrid")
@@ -252,4 +259,7 @@ def build_model(config: dict) -> MeMOTR:
         update_threshold=cfg_get(config, "UPDATE_THRESH", 0.5),
         long_memory_lambda=cfg_get(config, "LONG_MEMORY_LAMBDA", 0.01),
         dtype=DTYPES[cfg_get(config, "DTYPE")],
+        dropout=float(cfg_get(config, "DROPOUT")),
+        extra_track_attn=bool(cfg_get(config, "EXTRA_TRACK_ATTN")),
+        use_checkpoint=bool(cfg_get(config, "USE_CHECKPOINT")),
     )

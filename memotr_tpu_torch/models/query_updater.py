@@ -6,6 +6,9 @@ slot liveness: refresh ``ref_pts`` from the boxes, fuse short memory,
 attend across slots to the long memory, update the query embedding, and
 move the long memory by an EMA.  Dead slots are hidden from the memory
 attention keys.  Parameter names follow the reference ``query_updater.*``.
+Dropout (``models/dropout.py``) acts on the memory attention's
+probabilities and output, inside both FFNs, and on the fused memory before
+``query_feat_norm``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.misc import inverse_sigmoid, logits_to_scores, pos_to_pos_embed
+from .dropout import Dropout
 from .layers import FFN, MLP, LayerNorm, Linear, MultiheadAttention
 
 
@@ -23,7 +27,7 @@ class QueryUpdater(nn.Module):
     def __init__(self, hidden_dim: int, ffn_dim: int, use_dab: bool = True,
                  update_threshold: float = 0.5,
                  long_memory_lambda: float = 0.01,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         c = hidden_dim
         self.hidden_dim = c
@@ -34,11 +38,14 @@ class QueryUpdater(nn.Module):
         self.confidence_weight_net = nn.Sequential(
             MLP(c, c, c, 2, dtype=dtype), nn.Sigmoid())
         self.short_memory_fusion = MLP(2 * c, 2 * c, c, 2, dtype=dtype)
-        self.memory_attn = MultiheadAttention(c, 8, dtype=dtype)
+        self.memory_attn = MultiheadAttention(c, 8, dtype=dtype,
+                                              dropout=dropout)
         self.memory_norm = LayerNorm(c)
-        self.memory_ffn = FFN(c, ffn_dim, dtype=dtype)
+        self.memory_ffn = FFN(c, ffn_dim, dtype=dtype, dropout=dropout)
         self.query_feat_norm = LayerNorm(c)
-        self.query_feat_ffn = FFN(c, ffn_dim, dtype=dtype)
+        self.query_feat_ffn = FFN(c, ffn_dim, dtype=dtype, dropout=dropout)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
         self.query_pos_head = MLP(2 * c, c, c, 2, dtype=dtype)
         if not use_dab:
             self.linear_pos1 = Linear(c, c, compute_dtype=dtype)
@@ -66,8 +73,9 @@ class QueryUpdater(nn.Module):
             torch.cat([conf_w * out_emb, last_out], dim=-1))
         tgt2 = self.memory_attn(short_memory + query_pos, long_mem + query_pos,
                                 out_emb, key_padding_mask=~slot_mask)
-        tgt = self.memory_ffn(self.memory_norm(out_emb + tgt2))
-        query_feat = self.query_feat_norm(long_mem + tgt.to(dt))
+        tgt = self.memory_ffn(self.memory_norm(out_emb + self.dropout1(tgt2)))
+        query_feat = self.query_feat_norm(long_mem
+                                          + self.dropout2(tgt.to(dt)))
         query_feat = self.query_feat_ffn(query_feat)
 
         lam = self.long_memory_lambda

@@ -38,20 +38,26 @@ class DeformableTransformer(nn.Module):
                  use_lepe: bool = True, use_bottomup: bool = True,
                  use_relpos: bool = True, prenorm: bool = False,
                  shared_cpb: bool = False, deform_min_level: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 extra_track_attn: bool = False,
+                 use_checkpoint: bool = False):
         """``window`` .. ``deform_min_level``: the options of the windowed
         and hybrid encoders (``WINDOW_SIZE``, ``WINDOWED_*``,
-        ``HYBRID_DEFORM_MIN_LEVEL``)."""
+        ``HYBRID_DEFORM_MIN_LEVEL``); ``dropout`` (``DROPOUT``),
+        ``extra_track_attn`` (``EXTRA_TRACK_ATTN``) and ``use_checkpoint``
+        (``USE_CHECKPOINT``) reach the encoder's and decoder's layers."""
         super().__init__()
         self.use_dab = use_dab
         self.dtype = dtype
         self.level_embed = nn.Parameter(torch.randn(n_levels, d_model))
+        opts = dict(dtype=dtype, dropout=dropout,
+                    use_checkpoint=use_checkpoint)
         win_opts = dict(window=window, use_lepe=use_lepe,
                         use_bottomup=use_bottomup, use_relpos=use_relpos,
-                        prenorm=prenorm, dtype=dtype)
+                        prenorm=prenorm, **opts)
         if encoder_type == "deformable":
             self.encoder = Encoder(n_enc_layers, d_model, d_ffn, n_levels,
-                                   n_heads, n_enc_points, dtype)
+                                   n_heads, n_enc_points, **opts)
         elif encoder_type == "windowed":
             self.encoder = WindowedEncoder(n_enc_layers, d_model, d_ffn,
                                            n_heads, n_levels,
@@ -62,12 +68,13 @@ class DeformableTransformer(nn.Module):
                                          deform_min_level, **win_opts)
         elif encoder_type == "conv":
             self.encoder = ConvEncoder(n_enc_layers, d_model, d_ffn, n_levels,
-                                       use_bottomup, dtype)
+                                       use_bottomup, **opts)
         else:
             raise ValueError(f"unknown ENCODER_TYPE {encoder_type!r}")
         self.decoder = Decoder(n_dec_layers, d_model, d_ffn, n_levels,
                                n_heads, n_dec_points, n_det_queries,
-                               merge_det_track_layer, use_dab, dtype)
+                               merge_det_track_layer, use_dab,
+                               extra_track_attn=extra_track_attn, **opts)
 
     def forward(self, srcs: List[torch.Tensor], masks: List[torch.Tensor],
                 pos_embeds: List[torch.Tensor], query_embed: torch.Tensor,

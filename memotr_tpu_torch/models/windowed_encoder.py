@@ -8,9 +8,17 @@ Each layer, per pyramid level: a 3x3 depthwise-conv positional residual
 or grid attention (odd layers) through the fused kernel K2
 (``ops/window_attn.py``) on the map padded to window multiples; post-norm
 (or pre-norm) residuals and FFN; then bidirectional cross-level fusion.
-The port has one attention route, the fused one (JAX
-``windowed_encoder.py:255-296``); ``WINDOWED_ATTN_IMPL`` is a TPU dispatch
-knob it ignores.
+Attention takes the fused route (JAX ``windowed_encoder.py:255-296``)
+wherever dropout is off: streaming, evaluation, serving, a distillation
+teacher, and training at ``DROPOUT`` 0.  K2 has no dropout, so a training
+step at ``DROPOUT`` > 0 takes the composed route instead: the plain
+version of K2 with dropout on the attention probabilities, the function
+of JAX's ``MultiheadAttention`` route (``windowed_encoder.py:221``), which
+JAX takes whenever ``dropout > 0``.  The configuration sets the route;
+it is not a fallback.  ``WINDOWED_ATTN_IMPL`` is a TPU dispatch knob the
+port ignores.  Dropout also follows the attention and the FFN's hidden
+activation and output, per level; ``USE_CHECKPOINT`` checkpoints each
+layer (``models/dropout.py``).
 
 Parameter names are those of the JAX trees under the port's module names:
 ``layers.<i>.win_attn.{in_proj_weight, in_proj_bias, out_proj}``,
@@ -28,8 +36,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.window_attn import grid_transpose, grid_untranspose, window_attention
+from ..ops.window_attn import (grid_transpose, grid_untranspose,
+                               window_attention, window_attention_torch)
 from ..utils.misc import host_to_device
+from .dropout import Dropout, run_layer
 from .layers import LayerNorm, Linear, MultiheadAttention
 from .resnet import Conv2d
 
@@ -147,11 +157,15 @@ class WindowedEncoderLayer(nn.Module):
                  use_lepe: bool = True, use_bottomup: bool = True,
                  use_relpos: bool = True, prenorm: bool = False,
                  own_cpb: bool = True, relpos_hidden: int = 64,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.n_heads, self.window, self.grid = n_heads, window, grid
         self.use_relpos, self.prenorm, self.dtype = use_relpos, prenorm, dtype
-        self.win_attn = MultiheadAttention(d_model, n_heads, dtype)
+        self.win_attn = MultiheadAttention(d_model, n_heads, dtype,
+                                           dropout=dropout)
+        self.dropout_attn = Dropout(dropout)
+        self.dropout_hidden = Dropout(dropout)
+        self.dropout_ffn = Dropout(dropout)
         if use_relpos and own_cpb:
             self.cpb_mlp1 = nn.Linear(2, relpos_hidden)
             self.cpb_mlp2 = nn.Linear(relpos_hidden, n_heads, bias=False)
@@ -178,8 +192,9 @@ class WindowedEncoderLayer(nn.Module):
                             self.window, self.grid)
 
     def _attend(self, x: torch.Tensor, m: torch.Tensor, pos: torch.Tensor,
-                bias: Optional[torch.Tensor]) -> torch.Tensor:
-        """Pad to window multiples, (grid: block-transpose), K2, crop."""
+                bias: Optional[torch.Tensor], lvl: int) -> torch.Tensor:
+        """Pad to window multiples, (grid: block-transpose), K2 (or, with
+        dropout active, its composed route), crop."""
         b, h, w, _ = x.shape
         win, dt = self.window, self.dtype
         ph, pw = (-h) % win, (-w) % win
@@ -192,10 +207,14 @@ class WindowedEncoderLayer(nn.Module):
             xp, pp, mp = (grid_transpose(t, win).contiguous()
                           for t in (xp, pp, mp))
         att = self.win_attn
-        y = window_attention(xp.contiguous(), pp.contiguous(), mp,
-                             att.in_proj_weight, att.in_proj_bias,
-                             att.out_proj.weight, att.out_proj.bias, bias,
-                             self.n_heads, wh, ww)
+        args = (xp.contiguous(), pp.contiguous(), mp, att.in_proj_weight,
+                att.in_proj_bias, att.out_proj.weight, att.out_proj.bias,
+                bias, self.n_heads, wh, ww)
+        if att.dropout.active():
+            y = window_attention_torch(
+                *args, attn_dropout=lambda a: att.dropout(a, call=lvl))
+        else:
+            y = window_attention(*args)
         if self.grid:
             y = grid_untranspose(y, win)
         return y[:, :h, :w]
@@ -213,16 +232,19 @@ class WindowedEncoderLayer(nn.Module):
                 x = x + self.lepe_dwconv(xz.permute(0, 3, 1, 2)
                                          ).permute(0, 2, 3, 1)
             xa = self.norm1(x).to(x.dtype) if self.prenorm else x
-            y = self._attend(xa, m, pos,
-                             biases[lvl] if biases is not None else None)
+            y = self.dropout_attn(self._attend(
+                xa, m, pos, biases[lvl] if biases is not None else None, lvl),
+                call=lvl)
             if self.prenorm:
                 x = x + y
-                f = self.linear2(F.relu(self.linear1(
-                    self.norm2(x).to(x.dtype))))
-                x = x + f
+                h = self.linear1(self.norm2(x).to(x.dtype))
             else:
                 x = self.norm1(x + y)
-                x = self.norm2(x + self.linear2(F.relu(self.linear1(x))))
+                h = self.linear1(x)
+            f = self.linear2(self.dropout_hidden(F.relu(h), call=lvl))
+            x = x + self.dropout_ffn(f, call=lvl)
+            if not self.prenorm:
+                x = self.norm2(x)
             out.append(x)
         return cross_level_fuse(out, self.topdown_mix, self.bottomup_mix)
 
@@ -236,15 +258,18 @@ class WindowedEncoder(nn.Module):
                  use_lepe: bool = True, use_bottomup: bool = True,
                  use_relpos: bool = True, prenorm: bool = False,
                  shared_cpb: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 use_checkpoint: bool = False):
         super().__init__()
         self.shared = use_relpos and shared_cpb
+        self.use_checkpoint = use_checkpoint
         self.layers = nn.ModuleList(
             WindowedEncoderLayer(d_model, d_ffn, n_heads, n_levels, window,
                                  grid=i % 2 == 1, use_lepe=use_lepe,
                                  use_bottomup=use_bottomup,
                                  use_relpos=use_relpos, prenorm=prenorm,
-                                 own_cpb=not shared_cpb, dtype=dtype)
+                                 own_cpb=not shared_cpb, dtype=dtype,
+                                 dropout=dropout)
             for i in range(num_layers))
         if self.shared:
             self.cpb_mlp1 = nn.Linear(2, 64)
@@ -277,7 +302,8 @@ class WindowedEncoder(nn.Module):
         if bias_tables is None:
             bias_tables = self.bias_tables(spatial_shapes)
         for layer, biases in zip(self.layers, bias_tables):
-            levels = layer(levels, masks, poss, biases)
+            levels = run_layer(layer, levels, masks, poss, biases,
+                               use_checkpoint=self.use_checkpoint)
         if self.final_norm is not None:
             levels = [self.final_norm(lv).to(lv.dtype) for lv in levels]
         return flatten_levels(levels)

@@ -25,7 +25,7 @@ node.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -35,8 +35,13 @@ def window_attention_torch(x: torch.Tensor, pos: torch.Tensor,
                            in_proj_bias: torch.Tensor,
                            out_weight: torch.Tensor, out_bias: torch.Tensor,
                            bias: Optional[torch.Tensor], n_heads: int,
-                           window_h: int, window_w: int) -> torch.Tensor:
-    """Plain version; the numerics reference of the CUDA kernel.
+                           window_h: int, window_w: int,
+                           attn_dropout: Optional[Callable] = None
+                           ) -> torch.Tensor:
+    """Plain version; the numerics reference of the CUDA kernel, and the
+    windowed encoder's composed route when dropout is active:
+    ``attn_dropout`` maps the probabilities (after the softmax) to their
+    dropped copy, as JAX's ``MultiheadAttention`` drops them.
 
     x, pos (B, H, W, C) with H % window_h == 0 and W % window_w == 0; mask
     (B, H, W) bool, True = pad; bias (n_heads, L, L) or None.  Returns the
@@ -76,6 +81,8 @@ def window_attention_torch(x: torch.Tensor, pos: torch.Tensor,
     logits = logits.to(torch.promote_types(dt, torch.float32)).masked_fill(
         m[:, None, None, :], torch.finfo(torch.float32).min)
     attn = torch.softmax(logits, dim=-1).to(dt)
+    if attn_dropout is not None:
+        attn = attn_dropout(attn)
     out = torch.matmul(attn, vh).transpose(1, 2).reshape(-1, l, c)
     y = torch.matmul(out, out_weight.to(dt).t()) + out_bias.to(dt)
     y = y.reshape(b, h // wh, w // ww, wh, ww, c)

@@ -172,12 +172,29 @@ def test_use_dab_default_is_shared():
     {"MESH_DEVICES": 2}, {"EXTRA_TRACK_ATTN": True}, {"DROPOUT": 0.1},
     {"USE_CHECKPOINT": True}])
 def test_unported_options_raise(override):
-    """Each option the port lacks is refused, by ``build_model`` or by the
-    streaming entry points' ``check_options``."""
+    """The TPU's in-process mesh is refused by the entry points'
+    ``check_options``, with a message that names the multi-process route;
+    the three training options the port refused until it had them now
+    build (``tests/test_torch_train_options.py`` holds them against JAX)."""
     cfg = dict(TINY_CFG, **override)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if "MESH_DEVICES" in override:
         build_model(cfg)
-        check_options(cfg)
+        with pytest.raises(NotImplementedError, match="--multi-host"):
+            check_options(cfg)
+        return
+    check_options(cfg)
+    model = build_model(cfg)
+    dec = model.transformer.decoder
+    if "EXTRA_TRACK_ATTN" in override:
+        assert [layer.track_attn is not None for layer in dec.layers] \
+            == [False, True, True]
+    elif "DROPOUT" in override:
+        from memotr_tpu_torch.models.dropout import Dropout
+        sites = [m for m in model.modules() if isinstance(m, Dropout)]
+        assert {m.p for m in sites} == {0.1}
+        assert sorted(m.site for m in sites) == list(range(len(sites)))
+    else:
+        assert model.transformer.encoder.use_checkpoint and dec.use_checkpoint
 
 
 @pytest.mark.parametrize("override", [

@@ -246,7 +246,8 @@ PORT_MODULES = [
         "data.gen_gts", "data.native", "log.logger", "checkpoint.files",
         "engine.train", "main", "ops.library", "serving",
         "utils.debug_dump", "utils.profiling", "tools.export_serving",
-        "tools.demo", "tools.reproduce_dancetrack")]
+        "tools.demo", "tools.reproduce_dancetrack", "models.dropout",
+        "utils.distributed")]
 
 
 def test_port_imports_no_jax():

@@ -325,16 +325,26 @@ def test_entry_points_raise_without_a_card_unless_asked_for_cpu(tmp_path):
     assert not os.path.exists(tmp_path / "out")
 
 
-@pytest.mark.parametrize("args, match", [
-    (["--mode", "eval", "--multi-host"], "item 9"),
-    (["--mode", "train", "--multi-host"], "item 9"),
-    (["--mode", "eval", "--mesh-devices", "2"], "item 9"),
-    (["--mode", "train", "--mesh-devices", "2"], "item 9"),
-    (["--mode", "train", "--token-shard-axis", "seq"], "TPU-only"),
-    (["--mode", "train", "--mesh-seq-devices", "2"], "item 9"),
+@pytest.mark.parametrize("args, error, match", [
+    (["--mode", "eval", "--multi-host"], RuntimeError,
+     "--multi-host needs torchrun"),
+    (["--mode", "train", "--multi-host"], RuntimeError,
+     "--multi-host needs torchrun"),
+    (["--mode", "eval", "--mesh-devices", "2"], NotImplementedError,
+     "--multi-host"),
+    (["--mode", "train", "--mesh-devices", "2"], NotImplementedError,
+     "--multi-host"),
+    (["--mode", "train", "--token-shard-axis", "seq"], NotImplementedError,
+     "TPU-only"),
+    (["--mode", "train", "--mesh-seq-devices", "2"], NotImplementedError,
+     "--multi-host"),
 ])
-def test_options_not_ported_raise(tmp_path, args, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_options_not_ported_raise(tmp_path, args, error, match):
+    """``--multi-host`` outside torchrun's environment raises an error that
+    names it; the TPU's in-process mesh keys raise one that names the
+    multi-process route, and token sharding is TPU-only.  Nothing is
+    written."""
+    with pytest.raises(error, match=match):
         main(_write_yaml(tmp_path) + args + ["--device", "cpu"])
     assert not os.path.exists(tmp_path / "cli")
 
