@@ -1,0 +1,7 @@
+"""Device ms of everything launched inside the program's ``model.encoder``
+span, mean a step of the traced window."""
+from benchmark.metrics.program_spans import device_ms
+
+
+def read(run):
+    return device_ms(run, ("model.encoder",))

@@ -51,6 +51,7 @@ from ..models.memotr import build_model
 from ..structures.track_state import TrackState
 from ..utils.debug_dump import DebugDumper
 from ..utils.misc import host_to_device
+from ..utils.profiling import span
 
 BDD_LABEL_NAMES = {
     0: "pedestrian", 1: "rider", 2: "car", 3: "truck", 4: "bus",
@@ -145,15 +146,16 @@ def pack_results(results: Dict[str, torch.Tensor]) -> torch.Tensor:
     lane's overflow count is repeated over its S rows.  Ids are exact in
     float32 below 2**24."""
     b, s = results["ids"].shape
-    over = results["slot_overflow"].float()[:, None].expand(b, s)
-    return torch.cat([
-        results["ids"].float()[..., None],
-        results["labels"].float()[..., None],
-        results["boxes"].float(),
-        results["scores"].float()[..., None],
-        results["mask"].float()[..., None],
-        over[..., None],
-    ], dim=-1)
+    with span("step.pack"):
+        over = results["slot_overflow"].float()[:, None].expand(b, s)
+        return torch.cat([
+            results["ids"].float()[..., None],
+            results["labels"].float()[..., None],
+            results["boxes"].float(),
+            results["scores"].float()[..., None],
+            results["mask"].float()[..., None],
+            over[..., None],
+        ], dim=-1)
 
 
 def unpack_results(arr: np.ndarray) -> Tuple[Dict[str, np.ndarray],
@@ -181,7 +183,8 @@ def _drain(q: "queue_mod.Queue"):
     """Yield queue items until the None end marker, raising a worker's
     failure in the consuming thread."""
     while True:
-        item = q.get()
+        with span("submit.wait_input"):
+            item = q.get()
         if item is None:
             return
         if isinstance(item, _PrefetchFailure):
@@ -232,7 +235,13 @@ def _prefetch(items: Iterable, abort: threading.Event,
     q: "queue_mod.Queue" = queue_mod.Queue(maxsize=PREFETCH_DEPTH)
 
     def body(put):
-        for item in items:
+        it = iter(items)
+        while True:
+            with span("submit.prepare"):
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
             put(prepare(item) if prepare is not None else item)
 
     threading.Thread(target=_guarded(body, q, abort), daemon=True).start()
@@ -259,16 +268,17 @@ def stream_pipelined(batches: Iterable[Tuple[np.ndarray, np.ndarray, object]],
 
     def upload(batch):
         images, masks, meta = batch
-        img = torch.from_numpy(np.ascontiguousarray(images))
-        msk = torch.from_numpy(np.ascontiguousarray(masks))
-        if not cuda:
-            return img, msk, masks, None, meta
-        with torch.cuda.device(device), torch.cuda.stream(side):
-            img = img.pin_memory().to(device, non_blocking=True)
-            msk = msk.pin_memory().to(device, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(side)
-        return img, msk, masks, ready, meta
+        with span("submit.upload"):
+            img = torch.from_numpy(np.ascontiguousarray(images))
+            msk = torch.from_numpy(np.ascontiguousarray(masks))
+            if not cuda:
+                return img, msk, masks, None, meta
+            with torch.cuda.device(device), torch.cuda.stream(side):
+                img = img.pin_memory().to(device, non_blocking=True)
+                msk = msk.pin_memory().to(device, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(side)
+            return img, msk, masks, ready, meta
 
     def writer():
         try:
@@ -282,9 +292,11 @@ def stream_pipelined(batches: Iterable[Tuple[np.ndarray, np.ndarray, object]],
                 if got is None:
                     return
                 i, packed, copied, meta = got
-                if copied is not None:
-                    copied.synchronize()
-                write(i, packed.numpy().copy(), meta)
+                with span("submit.wait_device"):
+                    if copied is not None:
+                        copied.synchronize()
+                with span("submit.write"):
+                    write(i, packed.numpy().copy(), meta)
                 done_at.append(time.perf_counter())
         except BaseException as e:      # noqa: BLE001 - raised below
             errs.append(e)
@@ -303,21 +315,26 @@ def stream_pipelined(batches: Iterable[Tuple[np.ndarray, np.ndarray, object]],
                 compute.wait_event(ready)
                 img.record_stream(compute)
                 msk.record_stream(compute)
-            packed = step(img, msk, host_masks)
+            with span("submit.step"):
+                packed = step(img, msk, host_masks)
             copied = None
-            if cuda:
-                if not ring:
-                    ring = [torch.empty(packed.shape, dtype=torch.float32,
-                                        pin_memory=True)
-                            for _ in range(RESULT_RING)]
-                buf = ring[i % RESULT_RING]
-                buf.copy_(packed, non_blocking=True)
-                packed = buf
-                # the writer sleeps on it rather than spin
-                copied = torch.cuda.Event(blocking=True)
-                copied.record(compute)
-            if not _put_until(results_q, (i, packed, copied, meta),
-                              writer_dead):
+            with span("submit.copy_out"):
+                if cuda:
+                    if not ring:
+                        ring = [torch.empty(packed.shape,
+                                            dtype=torch.float32,
+                                            pin_memory=True)
+                                for _ in range(RESULT_RING)]
+                    buf = ring[i % RESULT_RING]
+                    buf.copy_(packed, non_blocking=True)
+                    packed = buf
+                    # the writer sleeps on it rather than spin
+                    copied = torch.cuda.Event(blocking=True)
+                    copied.record(compute)
+            with span("submit.wait_writer"):
+                put = _put_until(results_q, (i, packed, copied, meta),
+                                 writer_dead)
+            if not put:
                 break
         _put_until(results_q, None, writer_dead)
         wt.join()
@@ -361,11 +378,14 @@ class _Streamer:
               host_mask: np.ndarray, state: TrackState):
         """Normalize on the device and run the frame step, with the eval
         cache's constants for ``host_mask``."""
-        ctx = self.eval_cache.lookup(host_mask) \
-            if self.eval_cache is not None else None
+        with span("step.eval_cache"):
+            ctx = self.eval_cache.lookup(host_mask) \
+                if self.eval_cache is not None else None
+        with span("step.normalize"):
+            images = normalize_uint8(images)
         return eval_frame_step(
-            self.model, normalize_uint8(images), mask, state,
-            self.det_thresh, self.track_thresh, self.miss_tolerance, ctx)
+            self.model, images, mask, state, self.det_thresh,
+            self.track_thresh, self.miss_tolerance, ctx)
 
 
 class Submitter(_Streamer):

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..utils.misc import host_to_device
+from ..utils.profiling import span
 from .windowed_encoder import WindowedEncoder
 
 
@@ -91,7 +92,8 @@ class EvalCache:
         img_mask = np.asarray(img_mask, bool)
         if self._mask is None or self._mask.shape != img_mask.shape or \
                 not np.array_equal(self._mask, img_mask):
-            self._ctx = self._build(img_mask)
+            with span("step.eval_cache_build"):
+                self._ctx = self._build(img_mask)
             self._mask = img_mask.copy()
             self.builds += 1
         return self._ctx

@@ -10,6 +10,7 @@ import torch
 
 from ..structures.track_state import TrackState
 from ..utils.misc import logits_to_scores
+from ..utils.profiling import span
 from .criterion import ClipCriterion, FrameGT
 from .dropout import dropout_seed
 from .runtime_tracker import runtime_tracker_step
@@ -79,10 +80,12 @@ def eval_frame_step(model, images: torch.Tensor, mask: torch.Tensor,
     candidates dropped because every slot was taken.  ``eval_ctx``: the
     eval cache's constants for ``mask`` (``models/eval_cache.py``)."""
     out = model_forward(model, images, mask, state, eval_ctx)
-    state, overflow = runtime_tracker_step(
-        state, out, model.n_det_queries, det_score_thresh,
-        track_score_thresh, miss_tolerance)
-    state = apply_query_updater(model.query_updater, state)
+    with span("step.tracker"):
+        state, overflow = runtime_tracker_step(
+            state, out, model.n_det_queries, det_score_thresh,
+            track_score_thresh, miss_tolerance)
+    with span("step.updater"):
+        state = apply_query_updater(model.query_updater, state)
     results = {
         "ids": state.ids,
         "labels": state.labels,

@@ -25,6 +25,7 @@ from torch import nn
 
 from ..config import cfg_get, num_classes_for_dataset
 from ..utils.misc import inverse_sigmoid
+from ..utils.profiling import span
 from .decoder import bbox_head
 from .dropout import number_sites
 from .layers import Linear
@@ -162,27 +163,31 @@ class MeMOTR(nn.Module):
         (L, B, N, C), memory (B, S, C) (the encoder's output over the S
         flattened pyramid tokens) and memory_mask (B, S), True = padding."""
         b = images.shape[0]
-        # NHWC -> NCHW view with channels_last strides (no copy)
-        x = images.permute(0, 3, 1, 2).to(self.dtype)
-        feats = self.backbone["backbone"]["backbone"](x)
+        with span("model.backbone"):
+            # NHWC -> NCHW view with channels_last strides (no copy)
+            x = images.permute(0, 3, 1, 2).to(self.dtype)
+            feats = self.backbone["backbone"]["backbone"](x)
 
         srcs, masks, poss = [], [], []
-        for i, proj in enumerate(self.feature_projs):
-            inp = feats[i] if i < len(feats) else \
-                (feats[-1] if i == len(feats) else srcs[-1])
-            src = proj(inp)
-            m = _downsample_mask(img_mask, src.shape[2], src.shape[3])
-            srcs.append(src.to(self.dtype))
-            masks.append(m)
-            if eval_ctx is None:
-                poss.append(sine_position_embedding(m, self.hidden_dim // 2))
-            else:
-                pos = eval_ctx["pos_embeds"][i]
-                if pos.shape[1:3] != m.shape[1:]:
-                    raise ValueError(f"eval cache has a {tuple(pos.shape[1:3])} "
-                                     f"position map for a {tuple(m.shape[1:])} "
-                                     f"level {i}")
-                poss.append(pos)
+        with span("model.neck"):
+            for i, proj in enumerate(self.feature_projs):
+                inp = feats[i] if i < len(feats) else \
+                    (feats[-1] if i == len(feats) else srcs[-1])
+                src = proj(inp)
+                m = _downsample_mask(img_mask, src.shape[2], src.shape[3])
+                srcs.append(src.to(self.dtype))
+                masks.append(m)
+                if eval_ctx is None:
+                    poss.append(sine_position_embedding(
+                        m, self.hidden_dim // 2))
+                else:
+                    pos = eval_ctx["pos_embeds"][i]
+                    if pos.shape[1:3] != m.shape[1:]:
+                        raise ValueError(
+                            f"eval cache has a {tuple(pos.shape[1:3])} "
+                            f"position map for a {tuple(m.shape[1:])} "
+                            f"level {i}")
+                    poss.append(pos)
 
         det_query = self.det_query_embed
         if self.use_dab:

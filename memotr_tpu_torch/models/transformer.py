@@ -10,6 +10,7 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
+from ..utils.profiling import span
 from .conv_encoder import ConvEncoder
 from .decoder import Decoder
 from .encoder import Encoder
@@ -89,27 +90,30 @@ class DeformableTransformer(nn.Module):
         (B, S, C), the encoder's output over the flattened levels, and
         ``memory_mask`` (B, S), True = padding."""
         spatial_shapes = tuple((s.shape[2], s.shape[3]) for s in srcs)
-        src_flat = torch.cat([s.flatten(2).transpose(1, 2) for s in srcs],
-                             dim=1).contiguous()
-        mask_flat = torch.cat([m.flatten(1) for m in masks], dim=1)
-        pos_flat = torch.cat(
-            [(p + self.level_embed[i]).flatten(1, 2)
-             for i, p in enumerate(pos_embeds)], dim=1)
-        valid_ratios = valid_ratios_from_masks(masks)
+        with span("model.encoder"):
+            src_flat = torch.cat(
+                [s.flatten(2).transpose(1, 2) for s in srcs],
+                dim=1).contiguous()
+            mask_flat = torch.cat([m.flatten(1) for m in masks], dim=1)
+            pos_flat = torch.cat(
+                [(p + self.level_embed[i]).flatten(1, 2)
+                 for i, p in enumerate(pos_embeds)], dim=1)
+            valid_ratios = valid_ratios_from_masks(masks)
 
-        enc_args = (src_flat, spatial_shapes, valid_ratios, pos_flat,
-                    mask_flat)
-        memory = self.encoder(*enc_args) if bias_tables is None \
-            else self.encoder(*enc_args, bias_tables=bias_tables)
+            enc_args = (src_flat, spatial_shapes, valid_ratios, pos_flat,
+                        mask_flat)
+            memory = self.encoder(*enc_args) if bias_tables is None \
+                else self.encoder(*enc_args, bias_tables=bias_tables)
 
-        if self.use_dab:
-            tgt, query_pos = query_embed, None
-        else:
-            query_pos, tgt = torch.chunk(query_embed, 2, dim=-1)
-            query_pos = query_pos.to(self.dtype)
-        reference_points = torch.sigmoid(ref_pts.float())
-        dec = self.decoder(tgt.to(self.dtype), reference_points, memory,
-                           spatial_shapes, valid_ratios, query_pos,
-                           query_mask, mask_flat, class_embed)
+        with span("model.decoder"):
+            if self.use_dab:
+                tgt, query_pos = query_embed, None
+            else:
+                query_pos, tgt = torch.chunk(query_embed, 2, dim=-1)
+                query_pos = query_pos.to(self.dtype)
+            reference_points = torch.sigmoid(ref_pts.float())
+            dec = self.decoder(tgt.to(self.dtype), reference_points, memory,
+                               spatial_shapes, valid_ratios, query_pos,
+                               query_mask, mask_flat, class_embed)
         # the encoder's memory, for feature distillation (engine/trainer.py)
         return dict(dec, memory=memory, memory_mask=mask_flat)

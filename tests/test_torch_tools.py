@@ -16,7 +16,7 @@ queries, 8 slots, 1 encoder and 2 decoder layers, float32):
   checkpoint loaded strictly;
 - ``utils/profiling``: ``StepTimer`` skips the first step,
   ``device_memory_stats`` is ``{}`` on the CPU, ``trace`` writes a Chrome
-  trace with the ``annotate`` range in it.
+  trace with a ``span`` range in it.
 """
 import json
 import os
@@ -198,7 +198,7 @@ def test_device_memory_stats_empty_on_cpu():
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path / "trace")) as prof:
-        with profiling.annotate("serving step"):
+        with profiling.span("serving step"):
             torch.ones(8) @ torch.ones(8)
     assert any(e.key == "serving step" for e in prof.key_averages())
     with open(tmp_path / "trace" / "trace.json") as f:
