@@ -6,9 +6,9 @@ Phases, each printed on its own line; any failure ends the run with a
 nonzero exit and no result line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: the four kernel libraries from memotr_tpu_torch/csrc/ (K1 and
-   its backward, K2 and its backward; one nvcc each, in parallel), with
-   ptxas's registers and spills per kernel;
+2. build: the five kernel libraries from memotr_tpu_torch/csrc/ (K1 and
+   its backward, K2 and its backward, the backbone's conv_tail; one nvcc
+   each, in parallel), with ptxas's registers and spills per kernel;
 3. K1 (MSDA forward), through the wrapper the main path calls without a
    gradient (``ops.msda.ms_deform_attn``: the ``msda_fwd`` torch op), vs
    plain PyTorch on the card at the MSDA shapes of the paths (encoder B=1 and B=2, decoder B=1 and B=2, one awkward shape),
@@ -202,8 +202,15 @@ nonzero exit and no result line:
     ranks bit for bit and within TRAIN_NORM_RTOL (norms) of one process's
     step on both clips, MetricLog.sync's totals, and a two-sequence
     submit, one sequence a rank, whose union equals one process's txt;
-Phases run in the order 1-10, 18, 19, 11-17, 20, 21, 22, 23, 24, 25,
-26-29; then a JSON line of the training entry's numbers, a JSON line of
+30. conv_tail (the backbone's bias + identity + ReLU after each folded
+    convolution), through the ``conv_tail`` op, vs plain PyTorch at two
+    tail shapes of the main path (layer1 and layer3 conv3, B=8 at
+    800x1536, bfloat16, with identity): equal bit for bit; device time
+    against the bytes bound.  Phases 5, 7, 10 and 20 also count its
+    launches, 49 a frame (the stem and three a bottleneck), and the
+    backbone's one fold of its weights.
+Phases run in the order 1-4, 30, 5-10, 18, 19, 11-17, 20, 21, 22, 23, 24,
+25, 26-29; then a JSON line of the training entry's numbers, a JSON line of
 evaluation's and distillation's, a JSON line of serving's, a JSON line of
 the campaign's, a JSON line of phases 27-29, the card's name and power
 limit, a JSON line of kernel results and, last, the device line
@@ -406,9 +413,10 @@ def phase_build():
     from memotr_tpu_torch.ops import _build
     t0 = time.perf_counter()
     paths = _build.build("msda_fwd", "msda_bwd", "window_attn_fwd",
-                         "window_attn_bwd")
-    say("2 build", f"msda_fwd, msda_bwd, window_attn_fwd and window_attn_bwd "
-        f"(nvcc, sm_90a, in parallel) in {time.perf_counter() - t0:.1f} s")
+                         "window_attn_bwd", "conv_tail")
+    say("2 build", f"msda_fwd, msda_bwd, window_attn_fwd, window_attn_bwd "
+        f"and conv_tail (nvcc, sm_90a, in parallel) in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         entry = None
         for line in (path.parent / "build.log").read_text().splitlines():
@@ -511,6 +519,53 @@ def phase_k1(device):
                     f"{gathered / 1e6:.1f} MB, achieved "
                     f"{gathered / k_dev / 1e6:.1f} GB/s (device time)")
     return worst, times
+
+
+# ------------------------------------------------------------ conv tail
+# the backbone's tails a frame on the bf16 inference route: the stem and
+# three a bottleneck (models/resnet.py: ResNet50.forward_folded)
+BACKBONE_TAILS = 49
+# (N, C, H, W) of two tails with identity on the main path (B=8, 800x1536)
+CONV_TAIL_SHAPES = {"layer1_conv3": (8, 256, 200, 384),
+                    "layer3_conv3": (8, 1024, 50, 96)}
+
+
+def phase_conv_tail(device):
+    """The ``conv_tail`` op's kernel against the plain version on the card
+    at two of the backbone's tail shapes (bf16, channels_last, identity and
+    ReLU): equal bit for bit (the same float32 sums, one rounding), one
+    launch a call; then each one's device time against the bytes bound
+    (y and identity read, y written)."""
+    from memotr_tpu_torch.ops import conv_tail as ct
+    from memotr_tpu_torch.ops.library import conv_tail
+    g = torch.Generator(device=device).manual_seed(0)
+    with torch.inference_mode():
+        for name, (n, c, h, w) in CONV_TAIL_SHAPES.items():
+            y, identity = (torch.randn((n, c, h, w), generator=g,
+                                       device=device).to(
+                torch.bfloat16, memory_format=torch.channels_last)
+                for _ in range(2))
+            bias = torch.randn(c, generator=g, device=device)
+            want = ct.conv_tail_torch(y, bias, identity, True)
+            got = y.clone()
+            before = ct.launches
+            conv_tail(got, bias, identity, True)
+            assert ct.launches == before + 1, "no conv_tail launch"
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (name, (got.float() - want.float()
+                                                   ).abs().max().item())
+            del got, want
+            nbytes = 3 * y.numel() * y.element_size() + c * 4
+            b_ms, b_by = bound(nbytes, 0, torch.bfloat16)
+            k_ms, k_dev, _ = timed(lambda: conv_tail(y, bias, identity, True))
+            p_ms, p_dev, _ = timed(lambda: ct.conv_tail_torch(
+                y, bias, identity, True))
+            say("30 conv_tail", f"{name} {n}x{c}x{h}x{w} bf16 with identity: "
+                f"equal to the plain version ok; kernel device {k_dev:.4f} ms "
+                f"(event-timed call {k_ms:.4f} ms), plain device {p_dev:.4f} "
+                f"ms (call {p_ms:.4f} ms), bound {b_ms:.4f} ms ({b_by}, "
+                f"{nbytes / 1e6:.1f} MB): {100 * b_ms / k_dev:.1f}% of it, "
+                f"{nbytes / k_dev / 1e6:.1f} GB/s")
 
 
 # ------------------------------------------------------------------- K2
@@ -924,14 +979,26 @@ def phase_slice(tag, config, n_frames, per_frame, device, live="first"):
     counts equal.  Checks each kernel's launches per frame (``per_frame``),
     finite results and, unless ``live`` is None, live tracks in the first
     (``"first"``) or some (``"any"``) frame and a non-empty MOT txt; prints
-    each loop's steady ms/frame.  Returns the model and the launch counts
-    of the pipelined run."""
+    each loop's steady ms/frame, and that the bf16 backbone folded its
+    weights once over both loops and launched BACKBONE_TAILS conv_tail
+    kernels a frame.  Returns the model and the launch counts of the
+    pipelined run."""
+    from memotr_tpu_torch.models import resnet
     from memotr_tpu_torch.models.memotr import build_model
+    from memotr_tpu_torch.ops import conv_tail
 
     model = random_weights_(build_model(config)).to(device).eval()
+    builds, tails = resnet.fold_builds, conv_tail.launches
     runs = {loop: stream(tag, model, config, synthetic_frames(n_frames),
                          device, loop, no_sync=loop == "pipelined")
             for loop in ("pipelined", "sync")}
+    tails = conv_tail.launches - tails
+    assert resnet.fold_builds == builds + 1, \
+        f"{tag}: backbone folded {resnet.fold_builds - builds} times"
+    assert tails == 2 * BACKBONE_TAILS * n_frames, (tag, tails)
+    say(tag, f"the backbone's weights folded once over both loops; "
+        f"conv_tail launches {tails} = {BACKBONE_TAILS} x {n_frames} frames "
+        f"x 2 loops ok")
     sub, counts, txt, _ = runs["pipelined"]
     lines = txt.splitlines()
     assert len(sub.live) == n_frames, sub.live
@@ -3851,6 +3918,9 @@ def main() -> int:
     t0 = time.perf_counter()
     k2_err, k2_times = phase_k2(device)
     say("4 K2", f"done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_conv_tail(device)
+    say("30 conv_tail", f"done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     model, _ = phase_slice("5 deformable", CONFIG, N_FRAMES,

@@ -1,6 +1,8 @@
-"""K1 and K2 forward as torch operators (``torch.ops.memotr_tpu_torch``).
+"""K1 and K2 forward and the convolution tail as torch operators
+(``torch.ops.memotr_tpu_torch``).
 
-Registered with ``torch.library.custom_op``, so that torch's tracers
+Registered with ``torch.library`` (``custom_op``; ``conv_tail``, which runs
+most often, on the low-level ``Library``), so that torch's tracers
 (``torch.export``, ``torch.compile``) carry each kernel as one op node in
 place of its ``ctypes`` launch, which they cannot look into:
 
@@ -9,18 +11,23 @@ place of its ``ctypes`` launch, which they cannot look into:
   levels' ``(H, W)`` pairs flattened to ``[H_0, W_0, H_1, W_1, ...]``;
 - ``window_attn_fwd(x, pos, mask, in_proj_weight, in_proj_bias,
   out_weight, out_bias, bias, n_heads, window_h, window_w)``: K2, fused
-  window attention (``ops/window_attn.py``).
+  window attention (``ops/window_attn.py``);
+- ``conv_tail(y, bias, identity, relu)``: ``y <- act(y + bias[c] (+
+  identity))`` in place, the end of each of the backbone's folded
+  convolutions on its inference route (``ops/conv_tail.py``).
 
 Each has an implementation for two devices, chosen by the dispatcher from
 the inputs' device: on ``cuda`` the launch of the hand-written kernel
-(``msda_cuda.msda_forward``, ``window_attn_cuda.window_attention_fwd``),
-whose checks, shape-table cache and launch counter run only there, on real
+(``msda_cuda.msda_forward``, ``window_attn_cuda.window_attention_fwd``,
+``conv_tail.conv_tail_cuda``), whose checks, shape-table cache and launch counter run only there, on real
 tensors; on ``cpu`` the plain version.  Any other device raises.  The fake
 implementation gives the output's shape and dtype from the inputs' and
-reads no data, so a traced graph holds the same op node on both devices.
+reads no data, so a traced graph holds the same op node on both devices
+(``conv_tail`` returns nothing: its result is the mutated ``y``).
 
 The ops have no autograd formula: the training route goes through
-``MSDeformAttnFunction`` and ``WindowAttnFunction``.  Importing this module
+``MSDeformAttnFunction``, ``WindowAttnFunction`` and the backbone's
+unfolded convolutions.  Importing this module
 registers the ops; ``torch.export.load`` of a program that holds them needs
 it imported first.
 """
@@ -30,6 +37,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from .conv_tail import conv_tail_torch
 from .msda import ms_deform_attn_torch
 from .window_attn import window_attention_torch
 
@@ -94,3 +102,33 @@ def _window_attn_fwd_fake(x, pos, mask, in_proj_weight, in_proj_bias,
                           out_weight, out_bias, bias, n_heads, window_h,
                           window_w):
     return torch.empty_like(x)
+
+
+# conv_tail runs 49 times a backbone call, so it is defined with the
+# low-level ``torch.library.Library``: a call costs a few microseconds of
+# host time, against some 25 for a ``custom_op``, whose Python wrapper
+# checks aliasing and versions on every call.
+_lib = torch.library.Library(NAMESPACE, "FRAGMENT")
+_lib.define("conv_tail(Tensor(a!) y, Tensor bias, Tensor? identity, "
+            "bool relu) -> ()")
+
+
+def _conv_tail_cpu(y, bias, identity, relu):
+    y.copy_(conv_tail_torch(y, bias, identity, relu))
+
+
+def _conv_tail_cuda(y, bias, identity, relu):
+    from .conv_tail import conv_tail_cuda
+    conv_tail_cuda(y, bias, identity, relu)
+
+
+_lib.impl("conv_tail", _conv_tail_cpu, "CPU")
+_lib.impl("conv_tail", _conv_tail_cuda, "CUDA")
+
+
+@torch.library.register_fake(f"{NAMESPACE}::conv_tail", lib=_lib)
+def _conv_tail_fake(y, bias, identity, relu):
+    return None
+
+
+conv_tail = torch.ops.memotr_tpu_torch.conv_tail.default
