@@ -9,7 +9,8 @@ program's place, on the same inputs.  The limits in
 One process: set-up, a short window and the check for each seed in turn,
 on the GPU.  Each seed's line: the program's readings, the control's, and
 the run's end-to-end metrics.  With ``--fault <name>`` a fault of
-``benchmark/faults.py`` is planted in the program and its readings are
+``benchmark/faults.py`` (``faults.FAULTS``: its own and those of
+``benchmark/planted/``) is planted in the program and its readings are
 taken instead (no control).
 """
 from __future__ import annotations
@@ -28,7 +29,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--seconds", type=float, default=5.0)
     ap.add_argument("--out")
-    ap.add_argument("--fault", help="a fault of benchmark/faults.py to "
+    ap.add_argument("--fault", help="a fault of benchmark/faults.py or "
+                    "benchmark/planted/ to "
                     "plant in the program (its readings, not the control's)")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))

@@ -3,10 +3,20 @@
 (``control.py --fault``).  Each fault patches the program through
 ``patch(owner, name, value)`` (pytest's ``monkeypatch.setattr``, or
 ``Patches``, which undoes them).  The cells run on one chip, so no fault
-leaves out an exchange between chips."""
+leaves out an exchange between chips.
+
+The faults below can touch every configuration.  A fault of one part of
+the model sits in a file of its own, ``benchmark/planted/<fault>.py``,
+with ``plant(patch)`` and ``ENCODERS``, the ``ENCODER_TYPE`` values whose
+models it reaches; ``FAULTS`` holds both kinds, and ``applies`` says
+whether a fault can touch a configuration."""
 from __future__ import annotations
 
+import importlib.util
+from pathlib import Path
 from typing import Callable, Dict, List, Tuple
+
+PLANTED = Path(__file__).resolve().parent / "planted"
 
 
 class Patches:
@@ -70,5 +80,27 @@ def answer_altered(patch) -> None:
     patch(submit, "pack_results", pack)
 
 
-FAULTS: Dict[str, Callable] = {f.__name__: f for f in (
-    state_unchanged, half_lanes, answer_altered)}
+def _planted() -> Dict[str, Tuple[Callable, Tuple[str, ...]]]:
+    out = {}
+    for path in sorted(PLANTED.glob("*.py")):
+        spec = importlib.util.spec_from_file_location(
+            f"benchmark.planted.{path.stem}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out[path.stem] = (mod.plant, tuple(mod.ENCODERS))
+    return out
+
+
+_FILES = _planted()
+FAULTS: Dict[str, Callable] = {
+    **{f.__name__: f for f in (state_unchanged, half_lanes, answer_altered)},
+    **{name: plant for name, (plant, _) in _FILES.items()}}
+# the encoder types each planted fault reaches; the others reach every one
+ENCODERS: Dict[str, Tuple[str, ...]] = {
+    name: kinds for name, (_, kinds) in _FILES.items()}
+
+
+def applies(fault: str, config: dict) -> bool:
+    """Whether ``fault`` can touch the model of ``config``."""
+    return fault not in ENCODERS or (
+        config.get("ENCODER_TYPE") or "deformable") in ENCODERS[fault]

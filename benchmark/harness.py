@@ -8,7 +8,11 @@ the configuration's file (its ``file``), the traffic mix
 ``drivers.DRIVERS``), the limits of the check
 (``benchmark/limits/<workload>.json``) and one reader a metric
 (``benchmark/metrics/<metric name>.py``, whose ``read(run)`` returns the
-number or None where it finds nothing to read).
+number or None where it finds nothing to read).  The configuration's
+``ENCODER_TYPE`` picks the reference's encoder part
+(``benchmark/reference/models/encoders/<ENCODER_TYPE>.py``), and the faults
+that can touch it (``faults.applies``) include those of
+``benchmark/planted/<fault>.py``.
 """
 from __future__ import annotations
 

@@ -1,9 +1,17 @@
 """The benchmark's plain reference of MeMOTR: a frozen float32 copy of what
 the cells run, and no more: the model (ResNet-50, input projections, the
-deformable encoder, the DAB decoder, the query updater) and the streaming
-frame step (runtime tracker, query updater), with deformable attention in
-plain PyTorch (``ops/msda.py``) and no kernel.  A cell that runs more (the
-windowed encoder, training) brings its part of the reference with it.
+configuration's encoder, the DAB decoder, the query updater) and the
+streaming frame step (runtime tracker, query updater), in plain PyTorch
+and no kernel.
+
+The encoder is a part found by file: ``models/encoders/<ENCODER_TYPE>.py``
+with ``build(config, dtype)``.  ``deformable.py`` is the deformable encoder
+(``models/encoder.py``, deformable attention through ``ops/msda.py``);
+``windowed.py`` the windowed one (window and grid attention through
+``ops/window_attn.py``).  A configuration with another encoder brings its
+part as a new file, and a model without one is refused with the name of
+the file to add; what else a cell runs (training) brings its part the
+same way.
 
 It imports nothing of the program under test.  ``build(config)`` gives the
 model in float32 whatever the configuration's ``DTYPE``; callers turn TF32

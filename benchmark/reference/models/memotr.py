@@ -11,8 +11,9 @@ Parameter names follow the reference MeMOTR ``state_dict`` (the key set
 loads with ``load_state_dict`` and ``convert_torch_state_dict`` turns this
 model's state dict into the JAX parameter trees.  The query updater is a
 submodule (``query_updater.*``), as in the reference.  Only what the
-benchmark's cells run is here: the deformable encoder, DAB queries,
-inference; ``build_model`` refuses any other option.
+benchmark's cells run is here: DAB queries, inference, and the encoder of
+each ``ENCODER_TYPE`` that has a part (``encoders/<ENCODER_TYPE>.py``);
+``build_model`` refuses any other option.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.misc import inverse_sigmoid
+from . import encoders
 from .decoder import bbox_head
 from .layers import Linear
 from .position_embedding import sine_position_embedding
@@ -33,9 +35,9 @@ from .transformer import DeformableTransformer
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 NUM_CLASSES = {"DanceTrack": 1, "SportsMOT": 1, "MOT17": 1, "MOT17_SPLIT": 1,
                "BDD100K": 8}
-# options the reference does not implement, with the value it assumes
-UNSUPPORTED = {"ENCODER_TYPE": "deformable", "USE_DAB": True, "DROPOUT": 0.0,
-               "EXTRA_TRACK_ATTN": False}
+# options the reference does not implement, with the value it assumes (an
+# ENCODER_TYPE is implemented where it has a part: ``encoders.build``)
+UNSUPPORTED = {"USE_DAB": True, "DROPOUT": 0.0, "EXTRA_TRACK_ATTN": False}
 
 
 def _downsample_mask(mask: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -64,11 +66,11 @@ class GroupNorm32(nn.GroupNorm):
 
 
 class MeMOTR(nn.Module):
-    def __init__(self, num_classes: int = 1, n_det_queries: int = 300,
-                 n_feature_levels: int = 4, hidden_dim: int = 256,
-                 ffn_dim: int = 1024, n_heads: int = 8, n_enc_points: int = 4,
-                 n_dec_points: int = 4, n_enc_layers: int = 6,
-                 n_dec_layers: int = 6, merge_det_track_layer: int = 0,
+    def __init__(self, encoder: nn.Module, num_classes: int = 1,
+                 n_det_queries: int = 300, n_feature_levels: int = 4,
+                 hidden_dim: int = 256, ffn_dim: int = 1024, n_heads: int = 8,
+                 n_dec_points: int = 4, n_dec_layers: int = 6,
+                 merge_det_track_layer: int = 0,
                  update_threshold: float = 0.5,
                  long_memory_lambda: float = 0.01,
                  dtype: torch.dtype = torch.float32):
@@ -98,9 +100,8 @@ class MeMOTR(nn.Module):
         self.det_anchor = nn.Parameter(torch.randn(n_det_queries, 4))
 
         self.transformer = DeformableTransformer(
-            d_model=c, d_ffn=ffn_dim, n_levels=n_feature_levels,
-            n_heads=n_heads, n_enc_points=n_enc_points,
-            n_dec_points=n_dec_points, n_enc_layers=n_enc_layers,
+            encoder, d_model=c, d_ffn=ffn_dim, n_levels=n_feature_levels,
+            n_heads=n_heads, n_dec_points=n_dec_points,
             n_dec_layers=n_dec_layers, n_det_queries=n_det_queries,
             merge_det_track_layer=merge_det_track_layer, dtype=dtype)
 
@@ -175,24 +176,25 @@ class MeMOTR(nn.Module):
 def build_model(config: dict) -> MeMOTR:
     """Build from a flat UPPER_CASE config (the keys of
     ``memotr_tpu.models.memotr.build_model``); refuses the options the
-    reference does not implement."""
+    reference does not implement, and an ``ENCODER_TYPE`` without a
+    part."""
     for key, value in UNSUPPORTED.items():
         if config.get(key, value) != value:
             raise ValueError(f"the reference implements {key}={value!r} "
                              f"only, not {config[key]!r}")
+    dtype = DTYPES[config.get("DTYPE", "bfloat16")]
     return MeMOTR(
+        encoders.build(config, dtype),
         num_classes=NUM_CLASSES[config["DATASET"]],
         n_det_queries=config["NUM_DET_QUERIES"],
         n_feature_levels=config["NUM_FEATURE_LEVELS"],
         hidden_dim=config["HIDDEN_DIM"],
         ffn_dim=config["FFN_DIM"],
         n_heads=config["NUM_HEADS"],
-        n_enc_points=config["NUM_ENC_POINTS"],
         n_dec_points=config["NUM_DEC_POINTS"],
-        n_enc_layers=config["NUM_ENC_LAYERS"],
         n_dec_layers=config["NUM_DEC_LAYERS"],
         merge_det_track_layer=config.get("MERGE_DET_TRACK_LAYER", 0),
         update_threshold=config.get("UPDATE_THRESH", 0.5),
         long_memory_lambda=config.get("LONG_MEMORY_LAMBDA", 0.01),
-        dtype=DTYPES[config.get("DTYPE", "bfloat16")],
+        dtype=dtype,
     )

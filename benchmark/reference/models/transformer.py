@@ -1,5 +1,6 @@
-"""Deformable transformer: level flattening + the deformable encoder + the
-DAB decoder (counterpart of ``memotr_tpu/models/transformer.py``)."""
+"""Deformable transformer: level flattening + the configuration's encoder
+(its part, ``encoders/<ENCODER_TYPE>.py``) + the DAB decoder (counterpart
+of ``memotr_tpu/models/transformer.py``)."""
 from __future__ import annotations
 
 from typing import Dict, List
@@ -8,7 +9,6 @@ import torch
 from torch import nn
 
 from .decoder import Decoder
-from .encoder import Encoder
 
 
 def valid_ratios_from_masks(masks: List[torch.Tensor]) -> torch.Tensor:
@@ -23,17 +23,17 @@ def valid_ratios_from_masks(masks: List[torch.Tensor]) -> torch.Tensor:
 
 
 class DeformableTransformer(nn.Module):
-    def __init__(self, d_model: int = 256, d_ffn: int = 1024,
-                 n_levels: int = 4, n_heads: int = 8, n_enc_points: int = 4,
-                 n_dec_points: int = 4, n_enc_layers: int = 6,
-                 n_dec_layers: int = 6, n_det_queries: int = 300,
-                 merge_det_track_layer: int = 0,
+    def __init__(self, encoder: nn.Module, d_model: int = 256,
+                 d_ffn: int = 1024, n_levels: int = 4, n_heads: int = 8,
+                 n_dec_points: int = 4, n_dec_layers: int = 6,
+                 n_det_queries: int = 300, merge_det_track_layer: int = 0,
                  dtype: torch.dtype = torch.float32):
+        """``encoder``: the configuration's encoder part
+        (``encoders.build``)."""
         super().__init__()
         self.dtype = dtype
         self.level_embed = nn.Parameter(torch.randn(n_levels, d_model))
-        self.encoder = Encoder(n_enc_layers, d_model, d_ffn, n_levels,
-                               n_heads, n_enc_points, dtype=dtype)
+        self.encoder = encoder
         self.decoder = Decoder(n_dec_layers, d_model, d_ffn, n_levels,
                                n_heads, n_dec_points, n_det_queries,
                                merge_det_track_layer, dtype=dtype)
