@@ -39,6 +39,7 @@ from torch import nn
 from ..ops.window_attn import (grid_transpose, grid_untranspose,
                                window_attention, window_attention_torch)
 from ..utils.misc import host_to_device
+from ..utils.profiling import span
 from .dropout import Dropout, run_layer
 from .layers import LayerNorm, Linear, MultiheadAttention
 from .resnet import Conv2d
@@ -224,29 +225,36 @@ class WindowedEncoderLayer(nn.Module):
                 ) -> List[torch.Tensor]:
         """levels (B, H_l, W_l, C); masks (B, H_l, W_l) True = pad; poss
         (B, H_l, W_l, C); biases from ``bias_tables`` (or the eval
-        cache)."""
+        cache).  Per level it opens the spans ``encoder.lepe``,
+        ``encoder.attn`` (pre-norm's first norm, the padding, the grid
+        transpose, K2, the crop) and ``encoder.ffn`` (the residual add,
+        the norms and the FFN), then ``encoder.fuse`` once."""
         out = []
         for lvl, (x, m, pos) in enumerate(zip(levels, masks, poss)):
             if self.lepe_dwconv is not None:
-                xz = x.masked_fill(m[..., None], 0.0)
-                x = x + self.lepe_dwconv(xz.permute(0, 3, 1, 2)
-                                         ).permute(0, 2, 3, 1)
-            xa = self.norm1(x).to(x.dtype) if self.prenorm else x
-            y = self.dropout_attn(self._attend(
-                xa, m, pos, biases[lvl] if biases is not None else None, lvl),
-                call=lvl)
-            if self.prenorm:
-                x = x + y
-                h = self.linear1(self.norm2(x).to(x.dtype))
-            else:
-                x = self.norm1(x + y)
-                h = self.linear1(x)
-            f = self.linear2(self.dropout_hidden(F.relu(h), call=lvl))
-            x = x + self.dropout_ffn(f, call=lvl)
-            if not self.prenorm:
-                x = self.norm2(x)
+                with span("encoder.lepe"):
+                    xz = x.masked_fill(m[..., None], 0.0)
+                    x = x + self.lepe_dwconv(xz.permute(0, 3, 1, 2)
+                                             ).permute(0, 2, 3, 1)
+            with span("encoder.attn"):
+                xa = self.norm1(x).to(x.dtype) if self.prenorm else x
+                y = self.dropout_attn(self._attend(
+                    xa, m, pos, biases[lvl] if biases is not None else None,
+                    lvl), call=lvl)
+            with span("encoder.ffn"):
+                if self.prenorm:
+                    x = x + y
+                    h = self.linear1(self.norm2(x).to(x.dtype))
+                else:
+                    x = self.norm1(x + y)
+                    h = self.linear1(x)
+                f = self.linear2(self.dropout_hidden(F.relu(h), call=lvl))
+                x = x + self.dropout_ffn(f, call=lvl)
+                if not self.prenorm:
+                    x = self.norm2(x)
             out.append(x)
-        return cross_level_fuse(out, self.topdown_mix, self.bottomup_mix)
+        with span("encoder.fuse"):
+            return cross_level_fuse(out, self.topdown_mix, self.bottomup_mix)
 
 
 class WindowedEncoder(nn.Module):

@@ -29,7 +29,10 @@ fixed strings):
   model): ``step.eval_cache`` (the lookup; a rebuild nests
   ``step.eval_cache_build``), ``step.normalize``, ``model.backbone``,
   ``model.neck`` (input projections, masks, position maps),
-  ``model.encoder`` (flattening and the encoder layers, K1 included),
+  ``model.encoder`` (flattening and the encoder layers, K1 included;
+  inside a windowed layer, per level, ``encoder.lepe``, ``encoder.attn``
+  (K2 with its padding and grid transpose) and ``encoder.ffn``, then
+  ``encoder.fuse`` once),
   ``model.decoder`` (the decoder and its heads), ``step.tracker``,
   ``step.updater``, ``step.pack``;
 - writer thread: ``submit.wait_device`` (waiting for the result's copy),
