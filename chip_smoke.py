@@ -585,7 +585,13 @@ K2_CASES = {"window_l0": (0, False, 1), "window_l1": (1, False, 1),
             "grid_l0": (0, True, 1),
             "grid_l1": (1, True, 1), "grid_l2": (2, True, 1),
             "grid_l3": (3, True, 1), "window_l0_b2": (0, False, 2),
-            "grid_l0_b2": (0, True, 2)}
+            "grid_l0_b2": (0, True, 2), "window_l0_b24": (0, False, 24),
+            "grid_l0_b24": (0, True, 24)}
+# The previous kernel's device ms a call at the cell's B=24 shapes (two
+# mma.sync launches, a block a head; the mean of six readings in three calls
+# of PERF.md section 6, NVIDIA H100 80GB HBM3 at 700 W), printed beside the
+# wgmma route's.
+K2_PARENT_MS = {"window_l0_b24": 3.02, "grid_l0_b24": 5.21}
 
 
 def k2_case(name, dtype, device, seed=0, train=False, geometry=None,
@@ -687,7 +693,10 @@ def k2_bound(args, geo):
 def phase_k2(device):
     """K2 through the wrapper the main path calls without a gradient
     (``ops.window_attn.window_attention``: the ``window_attn_fwd`` op) vs
-    the plain version on the card; returns (max f32 error, times)."""
+    the plain version on the card; bf16 at C=256 must take the wgmma route.
+    Timed at level 0 of the 800x1536 canvas at B=1, 2 and 24 (the
+    ``windowed_stream_b24`` cell's lanes); returns (max f32 error,
+    times)."""
     from memotr_tpu_torch.ops import window_attn_cuda
     from memotr_tpu_torch.ops.window_attn import (window_attention,
                                                   window_attention_torch)
@@ -695,8 +704,13 @@ def phase_k2(device):
     times = {}
     with torch.inference_mode():
         for name in ("window_l0", "grid_l0", "grid_l3", "window_l0_b2",
-                     "grid_l0_b2", "awkward"):
-            for dtype in (torch.float32, torch.bfloat16):
+                     "grid_l0_b2", "window_l0_b24", "grid_l0_b24",
+                     "awkward"):
+            # the cell's B=24 shapes in bf16 only (float32 takes the
+            # CUDA-core kernels, held at B=1 and 2)
+            dtypes = (torch.bfloat16,) if name.endswith("b24") else \
+                (torch.float32, torch.bfloat16)
+            for dtype in dtypes:
                 args, geo = k2_case(name, dtype, device)
                 before = window_attn_cuda.launches
                 out = window_attention(*args, *geo)
@@ -721,39 +735,47 @@ def phase_k2(device):
                     f"{geo[2]} (L={geo[1] * geo[2]}) heads {geo[0]} bias "
                     f"{args[7] is not None} {str(dtype)[6:]}: max_abs_err "
                     f"{err:.3e} ({tol}) ok")
+                del out, ref, args
             if name == "awkward":
                 continue
             args, geo = k2_case(name, torch.bfloat16, device, seed=1)
-            fused_before = window_attn_cuda.routes["fused"]
+            tc_before = window_attn_cuda.routes["wgmma"]
             lib = library_window_attention(*args, *geo)
             ref = window_attention_torch(args[0].float(), args[1].float(),
                                          *args[2:], *geo)
             lib_err = (lib.float() - ref).abs().max().item()
+            del lib, ref
             assert lib_err <= K2_BF16_ATOL, ("library", name, lib_err)
+            runs = 5 if name.endswith("b24") else 20
             k_ms, k_dev, parts = timed(
-                lambda: window_attention(*args, *geo))
-            assert window_attn_cuda.routes["fused"] > fused_before, \
-                f"{name}: bf16 at C=256, head dim 32 did not take the fused route"
-            p_ms, p_dev, _ = timed(lambda: window_attention_torch(*args, *geo))
+                lambda: window_attention(*args, *geo), runs)
+            assert window_attn_cuda.routes["wgmma"] > tc_before, \
+                f"{name}: bf16 at C=256, head dim 32 did not take the wgmma route"
+            p_ms, p_dev, _ = timed(
+                lambda: window_attention_torch(*args, *geo), runs)
             l_ms, l_dev, _ = timed(
-                lambda: library_window_attention(*args, *geo))
+                lambda: library_window_attention(*args, *geo), runs)
             b_ms, b_by = k2_bound(args, geo)
             flops = k2_flops(args, geo)
             times[name] = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
                                plain_device_ms=p_dev, library_ms=l_ms,
                                library_device_ms=l_dev, bound_ms=b_ms,
                                bound_by=b_by)
-            say("4 K2", f"{name} bf16, per call over 20: kernel device "
-                f"{k_dev:.4f} ms (event-timed call {k_ms:.4f} ms), plain "
-                f"device {p_dev:.4f} ms (call {p_ms:.4f}), library "
+            parent = K2_PARENT_MS.get(name)
+            say("4 K2", f"{name} bf16, per call over {runs}: kernel device "
+                f"{k_dev:.4f} ms (event-timed call {k_ms:.4f} ms), previous "
+                f"kernel device "
+                + (f"{parent:.4f} ms" if parent else "not measured")
+                + f", plain device {p_dev:.4f} ms (call {p_ms:.4f}), library "
                 f"composition device {l_dev:.4f} ms (call {l_ms:.4f}; its "
                 f"max_abs_err {lib_err:.3e}), bound {b_ms:.4f} ms ({b_by}); "
                 f"achieved {flops / k_dev / 1e9:.1f} TFLOP/s (device time), "
                 f"{b_ms / k_dev:.1%} of the bound")
             say("4 K2", f"{name} bf16 device time by CUDA kernel (profiler, "
-                f"20 calls): " + ", ".join(
+                f"{runs} calls): " + ", ".join(
                     f"{kernel_name(k)} {ms:.4f} ms ({n} launches)"
                     for k, (ms, n) in parts.items()))
+            del args
     return worst, times
 
 

@@ -74,6 +74,18 @@ def np_sine_position_embedding(mask: np.ndarray, num_pos_feats: int,
     return np.concatenate([pos_y, pos_x], axis=-1).astype(np.float32)
 
 
+def same_mask(a: np.ndarray, b: np.ndarray) -> bool:
+    """Whether two bool masks of one shape hold the same bytes, compared
+    eight at a time where the size allows (a 24-lane canvas mask is 29.5
+    MB and is compared every step; ``np.array_equal`` on the bools took
+    ~12.6 ms of the dispatch thread).  Masks whose bytes differ where their
+    values agree cost a rebuild, not a wrong answer."""
+    if a.nbytes % 8 or not (a.flags.c_contiguous and b.flags.c_contiguous):
+        return np.array_equal(a, b)
+    return np.array_equal(a.reshape(-1).view(np.uint64),
+                          b.reshape(-1).view(np.uint64))
+
+
 class EvalCache:
     """Per-sequence constants for ``MeMOTR.forward(..., eval_ctx=...)``.
 
@@ -91,7 +103,7 @@ class EvalCache:
     def lookup(self, img_mask: np.ndarray) -> Dict:
         img_mask = np.asarray(img_mask, bool)
         if self._mask is None or self._mask.shape != img_mask.shape or \
-                not np.array_equal(self._mask, img_mask):
+                not same_mask(self._mask, img_mask):
             with span("step.eval_cache_build"):
                 self._ctx = self._build(img_mask)
             self._mask = img_mask.copy()

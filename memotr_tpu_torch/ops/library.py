@@ -94,7 +94,7 @@ def _window_attn_fwd_cuda(x, pos, mask, in_proj_weight, in_proj_bias,
     from .window_attn_cuda import window_attention_fwd
     return window_attention_fwd(x, pos, mask, in_proj_weight, in_proj_bias,
                                 out_weight, out_bias, bias, n_heads,
-                                window_h, window_w)[0]
+                                window_h, window_w, head_outputs=False)[0]
 
 
 @window_attn_fwd.register_fake

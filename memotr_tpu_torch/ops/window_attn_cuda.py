@@ -19,10 +19,15 @@ kernel between the projection products, which stay ``torch.matmul``.
 ``launches`` / ``bwd_launches`` count calls that launched the forward /
 backward kernel (one per call: the CUDA kernels of one call are one
 launch), and nothing else.  ``routes`` counts the forward calls by route:
-``"fused"`` (bfloat16 on the tensor cores: QKV projection + attention in
-one CUDA kernel, the output projection in a second; no Q/K/V in device
-memory) or ``"cuda_cores"`` (float32, and bf16 shapes the fused route does
-not take: three CUDA kernels through a Q/K/V scratch).  ``bwd_routes``
+``"wgmma"`` (bfloat16, C = 64 ... 256, head dim 16, 32 or 64, groups of at
+most 512 keys: the Hopper kernel, a block of two warpgroups each owning a
+64-row tile across all heads, the projections and the output projection on
+``wgmma`` with the weights streamed by TMA, the attention core on
+``mma.sync``; groups of L <= 64 in one launch after the weights' bf16
+rounding, larger groups through a K/V scratch in a second; no head-output
+map unless a gradient asks for it) or ``"cuda_cores"`` (float32, and the
+bf16 shapes the wgmma route does not take: three CUDA kernels through a
+Q/K/V scratch).  ``bwd_routes``
 counts the backward calls by the route of their attention core:
 ``"tensor_cores"`` (bfloat16, head dim 16, 32 or 64, a block per head over
 whole groups: the windows and the smaller grid groups),
@@ -45,14 +50,16 @@ BWD_NAME = "window_attn_bwd"
 
 launches = 0
 bwd_launches = 0
-routes = {"fused": 0, "cuda_cores": 0}
+routes = {"wgmma": 0, "cuda_cores": 0}
 bwd_routes = {"tensor_cores": 0, "tensor_cores_tiled": 0, "cuda_cores": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# x, pos, mask, w_in, b_in, w_out, b_out, bias, qkv, o, out; dtype, B, Hp,
-# Wp, C, heads, wh, ww; stream.  window_attn_fused: dtype, C, heads, L, bias
+# x, pos, mask, w_in, b_in, w_out, b_out, bias, scratch, o, out; dtype, B,
+# Hp, Wp, C, heads, wh, ww; stream.  window_attn_plan: dtype, B, Hp, Wp, C,
+# heads, wh, ww, bias; out (scratch elements)
 _ARGTYPES = {"window_attn_fwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
              + [ctypes.c_void_p],
-             "window_attn_fused": [ctypes.c_int] * 5}
+             "window_attn_plan": [ctypes.c_int] * 9
+             + [ctypes.POINTER(ctypes.c_longlong)]}
 # x, pos, gy, mask, w_in, b_in, w_out, bias, proj, wmask, fws, dqkv,
 # g_bias; dtype, B, Hp, Wp, C, heads, wh, ww; stream.
 # window_attn_bwd_plan: dtype, B, Hp, Wp, C, heads, wh, ww, bias; out (2
@@ -113,45 +120,47 @@ def window_attention_fwd(x: torch.Tensor, pos: torch.Tensor,
                          mask: torch.Tensor, in_proj_weight: torch.Tensor,
                          in_proj_bias: torch.Tensor, out_weight: torch.Tensor,
                          out_bias: torch.Tensor, bias: Optional[torch.Tensor],
-                         n_heads: int, window_h: int, window_w: int
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+                         n_heads: int, window_h: int, window_w: int,
+                         head_outputs: bool = True
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch the forward kernel on checked inputs -> (out (B, H, W, C),
     o: the head outputs (B*H*W, C) in window order, which the backward's
-    output-projection gradient reads)."""
+    output-projection gradient reads; None unless ``head_outputs``, and
+    then the wgmma route allocates and writes no head-output map)."""
     global launches
     _check(x, pos, mask, in_proj_weight, in_proj_bias, out_weight, out_bias,
            bias, n_heads, window_h, window_w)
     b, h, w, c = x.shape
     lib = _build.load(NAME, _ARGTYPES)
-    fused = bool(lib.window_attn_fused(_DTYPES[x.dtype], c, n_heads,
-                                       window_h * window_w,
-                                       int(bias is not None)))
-    if fused:                                 # 16-byte loads of these rows
+    n_scratch = ctypes.c_longlong()
+    tc = lib.window_attn_plan(_DTYPES[x.dtype], b, h, w, c, n_heads,
+                              window_h, window_w, int(bias is not None),
+                              ctypes.byref(n_scratch)) == 1
+    if tc:                                    # 16-byte loads of these rows
         for name, t in (("x", x), ("pos", pos),
                         ("in_proj_weight", in_proj_weight),
                         ("out_weight", out_weight)):
             if t.data_ptr() % 16:
                 raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(x)
-    o = torch.empty((b * h * w, c), dtype=x.dtype, device=x.device)
-    qkv = None if fused else torch.empty((3,) + tuple(x.shape),
-                                         dtype=x.dtype, device=x.device)
+    o = torch.empty((b * h * w, c), dtype=x.dtype, device=x.device) \
+        if head_outputs or not tc else None
+    scratch = torch.empty((n_scratch.value,), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.window_attn_fwd(
         x.data_ptr(), pos.data_ptr(), mask.data_ptr(),
         in_proj_weight.data_ptr(), in_proj_bias.data_ptr(),
         out_weight.data_ptr(), out_bias.data_ptr(),
-        bias.data_ptr() if bias is not None else None,
-        qkv.data_ptr() if qkv is not None else None,
-        o.data_ptr(), out.data_ptr(), _DTYPES[x.dtype], b, h, w, c, n_heads,
-        window_h, window_w, stream)
+        bias.data_ptr() if bias is not None else None, scratch.data_ptr(),
+        o.data_ptr() if o is not None else None, out.data_ptr(),
+        _DTYPES[x.dtype], b, h, w, c, n_heads, window_h, window_w, stream)
     if rc != 0:
         raise RuntimeError(f"window_attn_fwd launch failed: CUDA error {rc} "
                            f"(window {window_h}x{window_w}, C={c}, "
                            f"{n_heads} heads)")
     launches += 1
-    routes["fused" if fused else "cuda_cores"] += 1
-    return out, o
+    routes["wgmma" if tc else "cuda_cores"] += 1
+    return out, (o if head_outputs else None)
 
 
 def _merge(o: torch.Tensor, b: int, h: int, w: int, wh: int,

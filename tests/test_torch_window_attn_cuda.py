@@ -41,24 +41,47 @@ CASES = {
     "awkward_c32": (2, 16, 24, 32, 4, 4, 4, False, True),
     # C not a multiple of 32, head dim 8: the CUDA-core kernels in bf16 too
     "awkward_c24": (1, 8, 12, 24, 3, 4, 4, True, True),
-    # the main path's widths (C=256, 8 heads, head dim 32): the fused
+    # the main path's widths (C=256, 8 heads, head dim 32): the wgmma
     # tensor-core route in bf16
     "main_window_l64": (1, 16, 24, 256, 8, 8, 8, True, True),
     "main_grid_l312": (1, 26, 48, 256, 8, 13, 24, True, True),
     "main_grid_l6": (1, 16, 24, 256, 8, 2, 3, True, False),
     "main_window_b2": (2, 16, 24, 256, 8, 8, 8, False, True),
-    # the fused route's other head dims: 16 (groups over 64 keys) and 64
+    # the wgmma route's other head dims: 16 (groups over 64 keys) and 64
     "fused_dh16_l84": (1, 14, 24, 64, 4, 7, 12, True, True),
     "fused_dh64_l64": (1, 16, 24, 128, 2, 8, 8, True, True),
+    # windowed_stream_b24's level-0 and level-1 shapes at B=2 (800x1536
+    # canvas, padded columns, a dead window): the 104x192 windows, and grid
+    # groups of 13x24 and 7x12 (the K/V scratch route)
+    "cell_window_l64_b2": (2, 104, 192, 256, 8, 8, 8, True, True),
+    "cell_grid_l312_b2": (2, 104, 192, 256, 8, 13, 24, True, True),
+    "cell_grid_l84_b2": (2, 56, 96, 256, 8, 7, 12, True, True),
 }
 
 
 def _route(dtype, c, heads):
-    """The route a call takes: the fused tensor-core kernels in bf16 at C a
-    multiple of 64 and head dim 16, 32 or 64, else the CUDA-core kernels."""
-    fused = (dtype == torch.bfloat16 and c % 64 == 0
-             and c // heads in (16, 32, 64))
-    return "fused" if fused else "cuda_cores"
+    """The route a call takes: the wgmma kernel in bf16 at C = 64 ... 256
+    in steps of 64 and head dim 16, 32 or 64, else the CUDA-core
+    kernels."""
+    tc = (dtype == torch.bfloat16 and c % 64 == 0 and c <= 256
+          and c // heads in (16, 32, 64))
+    return "wgmma" if tc else "cuda_cores"
+
+
+def _scratch_bytes(args, geo):
+    """Bytes of each part of the scratch the forward allocates for a call
+    (``window_attn_plan``): on the wgmma route the bf16 weights (4C x C),
+    the bias table in the attention core's order (heads x R x R, R = 64 or
+    L rounded up to 64) and, for groups over 64 keys, K and V of every
+    token; no Q and no head outputs."""
+    b, h, w, c = args[0].shape
+    heads, wh, ww = geo
+    l = wh * ww
+    r = -(-l // 64) * 64
+    table = -(-heads * r * r // 64) * 64 if args[7] is not None else 0
+    es = args[0].element_size()
+    return {"weights": 4 * c * c * es, "table": table * es,
+            "kv": (2 * b * h * w * c if l > 64 else 0) * es}
 
 
 @pytest.fixture
@@ -109,18 +132,73 @@ def test_kernel_matches_plain(cuda, case, dtype):
     torch.testing.assert_close(out.float(), ref, atol=atol, rtol=1e-4)
 
 
+def _peak_bytes(fn):
+    """Bytes a call allocates at its peak over what stays allocated."""
+    fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base, out
+
+
 def test_fused_route_allocates_no_qkv_scratch(cuda):
-    """bf16 at the main path's widths: the call allocates its output and
-    one head-output map, and no (3, B, H, W, C) Q/K/V scratch."""
+    """bf16 at the main path's widths (grid L=312, over 64 keys): the call
+    allocates its output and the wgmma route's scratch (bf16 weights, bias
+    table, K and V), and no (3, B, H, W, C) Q/K/V scratch."""
     args, geo = _inputs(cuda, torch.bfloat16, *CASES["main_grid_l312"])
     with torch.inference_mode():
-        window_attention(*args, *geo)
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        out = window_attention(*args, *geo)
-        torch.cuda.synchronize()
-    assert torch.cuda.max_memory_allocated() - base <= 2 * out.nbytes + 4096
+        peak, out = _peak_bytes(lambda: window_attention(*args, *geo))
+    scratch = _scratch_bytes(args, geo)
+    assert peak <= out.nbytes + sum(scratch.values()) + 4096
+    assert scratch["kv"] == 2 * out.nbytes      # K and V; Q stays on chip
+
+
+@pytest.mark.parametrize("case", ["cell_window_l64_b2", "cell_grid_l312_b2"])
+def test_no_grad_call_allocates_no_head_output_map(cuda, case):
+    """Without a gradient (the ``window_attn_fwd`` op) the wgmma route
+    writes no head-output map: the call allocates its output and its
+    scratch only, a head-output map's bytes less than the call that keeps
+    the head outputs for a backward."""
+    args, geo = _inputs(cuda, torch.bfloat16, *CASES[case])
+    routes = window_attn_cuda.routes["wgmma"]
+    scratch = sum(_scratch_bytes(args, geo).values())
+    with torch.inference_mode():
+        peak, out = _peak_bytes(lambda: window_attention(*args, *geo))
+        kept, _ = _peak_bytes(
+            lambda: window_attn_cuda.window_attention_fwd(*args, *geo))
+    assert window_attn_cuda.routes["wgmma"] == routes + 4
+    # torch's caching allocator hands a request of 10 MiB or more a block
+    # rounded up to 2 MiB, and keeps it whole where under 1 MiB would be
+    # left: up to 1 MiB a request counts as allocated beyond its bytes
+    slack = sum(1 << 20 for n in (out.nbytes, scratch) if n >= 10 << 20)
+    assert peak <= out.nbytes + scratch + 4096 + slack
+    assert kept >= peak + out.nbytes - (1 << 20)
+
+
+@pytest.mark.parametrize("case", ["main_window_l64", "main_grid_l312",
+                                  "main_grid_l6", "fused_dh16_l84"])
+def test_grad_route_head_outputs_match_plain(cuda, case):
+    """With a gradient the wgmma route also stores the head outputs O / l
+    (window order) that the backward's output-projection gradient reads:
+    they match the plain version's (its output projection set to the
+    identity) within the bf16 tolerance, and storing them leaves the
+    output bit for bit as the no-grad call gives it."""
+    args, geo = _inputs(cuda, torch.bfloat16, *CASES[case])
+    b, h, w, c = args[0].shape
+    with torch.inference_mode():
+        out, o = window_attn_cuda.window_attention_fwd(*args, *geo)
+        alone, none = window_attn_cuda.window_attention_fwd(
+            *args, *geo, head_outputs=False)
+        want = window_attention_torch(
+            args[0].float(), args[1].float(), args[2], args[3], args[4],
+            torch.eye(c, device=cuda), torch.zeros(c, device=cuda), args[7],
+            *geo)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(out, alone)
+    got = window_attn_cuda._merge(o, b, h, w, geo[1], geo[2]).view(b, h, w, c)
+    torch.testing.assert_close(got.float(), want, atol=5e-2, rtol=1e-4)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -272,20 +350,15 @@ def test_backward_is_deterministic(cuda, case):
 def test_no_gradient_no_backward_state(cuda, mode):
     """Parameters that require grad, but no gradient asked for: the forward
     kernel alone, no graph, nothing saved (the call allocates its output
-    and the head-output map only) and no backward launch."""
+    and the kernel's scratch only) and no backward launch."""
     args, geo = _inputs(cuda, torch.bfloat16, *CASES["main_grid_l312"])
     args = args[:3] + tuple(a.requires_grad_() for a in args[3:])
     ctx = torch.inference_mode if mode == "inference_mode" else torch.no_grad
     fwd, bwd = window_attn_cuda.launches, window_attn_cuda.bwd_launches
     with ctx():
-        window_attention(*args, *geo)
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        out = window_attention(*args, *geo)
-        torch.cuda.synchronize()
+        peak, out = _peak_bytes(lambda: window_attention(*args, *geo))
     assert out.grad_fn is None and not out.requires_grad
-    assert torch.cuda.max_memory_allocated() - base <= 2 * out.nbytes + 4096
+    assert peak <= out.nbytes + sum(_scratch_bytes(args, geo).values()) + 4096
     assert window_attn_cuda.launches == fwd + 2
     assert window_attn_cuda.bwd_launches == bwd
 
